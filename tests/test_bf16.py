@@ -1,9 +1,8 @@
 """bf16 value-storage mode (RankedSlabs/PackedRanked val_dtype).
 
-The SpMV kernels are memory-bound at >90% of the layout roofline
-(docs/PERF_NOTES.md), so halving the dominant slab-value traffic is the
-remaining single-chip lever past padding removal. Contract: the kernel
-widens to f32 on load and must be bit-faithful to the bf16-ROUNDED
+The SpMV is bound by device memory, so halving the dominant slab-value
+bytes is a lever past padding removal. Contract: the product widens
+to f32 on load and must be bit-faithful to the bf16-ROUNDED
 operator; drift vs the f32 oracle is exactly the value rounding (zero
 for bf16-representable values, e.g. constant stencils). The reference
 is fp32-only (spmv-csr/spmv.c:11-57) — this is a net-new opt-in.
@@ -14,11 +13,11 @@ import copy
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_spmv.bench.matrices import laplacian_2d, power_law, random_banded
-from tpu_spmv.formats.packed import PackedRanked
-from tpu_spmv.formats.sell import RankedSlabs, load_layout
-from tpu_spmv.kernels.packed import spmv_packed
-from tpu_spmv.kernels.pallas_sell import spmv_ranked
+from hspmv.bench.matrices import laplacian_2d, power_law, random_banded
+from hspmv.formats.packed import PackedRanked
+from hspmv.formats.sell import RankedSlabs, load_layout
+from hspmv.kernels.packed import spmv_packed
+from hspmv.kernels.sell import spmv_ranked
 
 
 def _rel(a, b):
@@ -44,7 +43,7 @@ def test_bf16_ranked_bitfaithful_to_rounded_operator():
         lay = RankedSlabs.from_csr(mat, val_dtype=jnp.bfloat16)
         assert lay.vals.dtype == jnp.bfloat16
         x = np.random.default_rng(0).standard_normal(mat.n).astype(np.float32)
-        y = np.asarray(spmv_ranked(lay, jnp.asarray(x), interpret=True))
+        y = np.asarray(spmv_ranked(lay, jnp.asarray(x)))
         assert _rel(y, _rounded(mat).matvec(x)) < 1e-6
         if representable:
             assert _rel(y, mat.matvec(x)) < 1e-6
@@ -55,7 +54,7 @@ def test_bf16_packed_bitfaithful_to_rounded_operator():
         lay = PackedRanked.from_csr(mat, val_dtype=jnp.bfloat16)
         assert lay.vals.dtype == jnp.bfloat16
         x = np.random.default_rng(1).standard_normal(mat.n).astype(np.float32)
-        y = np.asarray(spmv_packed(lay, jnp.asarray(x), interpret=True))
+        y = np.asarray(spmv_packed(lay, jnp.asarray(x)))
         assert _rel(y, _rounded(mat).matvec(x)) < 1e-6
         if representable:
             assert _rel(y, mat.matvec(x)) < 1e-6
@@ -82,8 +81,8 @@ def test_bf16_layout_cache_roundtrip(tmp_path):
         np.asarray(lay.vals).view(np.uint16),
     )
     x = np.random.default_rng(2).standard_normal(mat.n).astype(np.float32)
-    ya = np.asarray(spmv_ranked(lay, jnp.asarray(x), interpret=True))
-    yb = np.asarray(spmv_ranked(back, jnp.asarray(x), interpret=True))
+    ya = np.asarray(spmv_ranked(lay, jnp.asarray(x)))
+    yb = np.asarray(spmv_ranked(back, jnp.asarray(x)))
     assert np.array_equal(ya, yb)
 
 
@@ -91,8 +90,8 @@ def test_bf16_dia_exact_on_representable_stencil():
     """DIA + bf16: the Laplacian's +-1/4 values are bf16-representable,
     so the result matches the f32 oracle exactly; traffic accounting
     reflects the halved value bytes."""
-    from tpu_spmv.formats.dia import DiaSlabs
-    from tpu_spmv.kernels.dia import spmv_dia
+    from hspmv.formats.dia import DiaSlabs
+    from hspmv.kernels.dia import spmv_dia
 
     mat = laplacian_2d(40)  # natural order: 5 constant diagonals
     f32 = DiaSlabs.from_csr(mat)
@@ -100,7 +99,7 @@ def test_bf16_dia_exact_on_representable_stencil():
     assert bf.vals.dtype == jnp.bfloat16
     assert bf.hbm_bytes == f32.hbm_bytes - 2 * f32.vals.size
     x = np.random.default_rng(4).standard_normal(mat.n).astype(np.float32)
-    y = np.asarray(spmv_dia(bf, jnp.asarray(x), interpret=True))
+    y = np.asarray(spmv_dia(bf, jnp.asarray(x)))
     assert _rel(y, mat.matvec(x)) < 1e-6
 
 
@@ -110,7 +109,7 @@ def test_bf16_sharded_ranked_matches_rounded_oracle():
     import jax
     import pytest
 
-    from tpu_spmv.dist.sharding import ShardedRanked, spmv_sharded
+    from hspmv.dist.sharding import ShardedRanked, spmv_sharded
 
     devs = jax.devices()
     if len(devs) < 4:
@@ -133,26 +132,12 @@ def test_bf16_sharded_ranked_matches_rounded_oracle():
     assert _rel(y, _rounded(mat).matvec(x)) < 1e-6
 
 
-def test_bf16_striped_matches_rounded_oracle():
-    from tpu_spmv.bench.matrices import random_general
-    from tpu_spmv.kernels.striped import StripedRanked, spmv_striped
-
-    mat = random_general(3000, 8, seed=1)
-    lay = StripedRanked.from_csr(
-        mat, stripe_cols=1024, bin_blocks=4, val_dtype=jnp.bfloat16
-    )
-    assert lay.vals.dtype == jnp.bfloat16
-    x = np.random.default_rng(0).standard_normal(mat.n).astype(np.float32)
-    y = np.asarray(spmv_striped(lay, jnp.asarray(x), interpret=True))
-    assert _rel(y, mat.rounded(jnp.bfloat16).matvec(x)) < 1e-6
-
-
 def test_bf16_cli_fallback_validates_vs_f32_oracle(capsys):
     """--val-dtype bf16 on a matrix whose span exceeds the packed-delta
     range drops to the f32 sell kernel — the validation oracle must
     follow the layout actually built (an exact f32 result judged
     against the rounded operator would report spurious wrongs)."""
-    from tpu_spmv.tools import spmv
+    from hspmv.tools import spmv
 
     # 50k scattered columns with cluster-aligned slots (bin 0) spans
     # ~390 x blocks per sub-tile — past the 256-block packed-delta
@@ -170,12 +155,12 @@ def test_bf16_cli_fallback_validates_vs_f32_oracle(capsys):
 
 def test_bf16_spmm_inherits_cast():
     """spmm over a bf16 RankedSlabs layout widens on load too."""
-    from tpu_spmv.kernels.spmm import spmm_ranked
+    from hspmv.kernels.spmm import spmm_ranked
 
     mat = laplacian_2d(32)
     lay = RankedSlabs.from_csr(mat, val_dtype=jnp.bfloat16)
     X = np.random.default_rng(3).standard_normal((mat.n, 4)).astype(np.float32)
-    Y = np.asarray(spmm_ranked(lay, jnp.asarray(X), interpret=True))
+    Y = np.asarray(spmm_ranked(lay, jnp.asarray(X)))
     Y_oracle = np.stack(
         [_rounded(mat).matvec(X[:, j]) for j in range(4)], axis=1
     )

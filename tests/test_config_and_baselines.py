@@ -1,14 +1,17 @@
-"""Config file parsing, BCOO baseline parity, analyzers, kernel planner."""
+"""Config file parsing, cuSPARSE baseline parity, analyzers, kernel planner,
+hardware table."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tpu_spmv.bench.matrices import laplacian_2d, random_banded, random_general
-from tpu_spmv.config import RunConfig
-from tpu_spmv.kernels.bcoo import BCOOLayout, spmv_bcoo
-from tpu_spmv.tools.analyze import format_overheads, load_balance
-from tpu_spmv.tune.model import exact_rank_nb, tpu_plan
+from hspmv.bench.matrices import laplacian_2d, random_banded, random_general
+from hspmv.config import RunConfig
+from hspmv.kernels.cusparse import (
+    CSRDevice, lowers_to_cusparse, spmv_cusparse, spmv_cusparse_reference,
+)
+from hspmv.tools.analyze import format_overheads, load_balance
+from hspmv.tune.model import exact_rank_nb, plan_layout
 
 
 def test_config_spmv_roundtrip(tmp_path):
@@ -41,20 +44,75 @@ def test_config_sts():
 
 
 def test_config_env(monkeypatch):
-    monkeypatch.setenv("TPU_SPMV_KERNEL", "ranked")
-    monkeypatch.setenv("TPU_SPMV_SUP_ROW_SIZES", "8,16")
+    monkeypatch.setenv("HSPMV_KERNEL", "ranked")
+    monkeypatch.setenv("HSPMV_SUP_ROW_SIZES", "8,16")
     cfg = RunConfig.from_env()
     assert cfg.kernel == "ranked"
     assert cfg.sup_row_sizes == (8, 16)
 
 
-def test_bcoo_matches_oracle():
-    mat = random_banded(400, 30, 6, seed=1)
-    lay = BCOOLayout.from_csr(mat)
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_cusparse_matches_oracle(seed):
+    """The vendor baseline's wrapper (CSR arrays, shapes, the portable
+    implementation on the CPU) against the serial CSR oracle."""
+    mat = random_banded(400, 30, 6, seed=seed)
+    lay = CSRDevice.from_csr(mat)
     x = np.random.default_rng(0).standard_normal(mat.n).astype(np.float32)
-    y = np.asarray(spmv_bcoo(lay, jnp.asarray(x)))
+    y = np.asarray(spmv_cusparse(lay, jnp.asarray(x)))
     y_ref = mat.matvec(x)
     assert np.linalg.norm(y - y_ref) / np.linalg.norm(y_ref) < 1e-6
+    np.testing.assert_allclose(
+        spmv_cusparse_reference(lay, x), y_ref, rtol=1e-5, atol=1e-5
+    )
+
+
+def test_cusparse_refuses_bf16_values():
+    """A value type cuSPARSE cannot take must fail, never fall back."""
+    mat = random_banded(200, 20, 6, seed=1)
+    lay = CSRDevice.from_csr(mat)
+    lay = CSRDevice(
+        lay.data.astype(jnp.bfloat16), lay.indices, lay.indptr,
+        lay.m, lay.n, lay.nnz,
+    )
+    with pytest.raises(TypeError):
+        spmv_cusparse(lay, jnp.zeros(mat.n, jnp.float32))
+
+
+@pytest.mark.gpu
+def test_cusparse_lowering_on_gpu():
+    """On the card the baseline must lower to a cuSPARSE call."""
+    mat = random_banded(2000, 30, 6, seed=1)
+    lay = CSRDevice.from_csr(mat)
+    assert lowers_to_cusparse(lay, jnp.zeros(mat.n, jnp.float32))
+
+
+def test_hw_table_h100_row():
+    from hspmv.hw import spec_for_kind
+
+    s = spec_for_kind("NVIDIA H100 80GB HBM3")
+    assert s.hbm_bytes_per_s == 3.35e12
+    assert s.hbm_bytes == 80 * 10**9
+    assert s.l2_bytes == 50 * 2**20
+    assert s.smem_per_block_bytes == 227 * 2**10
+    assert s.link_bytes_per_s == 450e9
+    assert s.source
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-40GB", "NVIDIA H100 PCIe", ""])
+def test_hw_unknown_kind_raises(kind):
+    from hspmv.hw import spec_for_kind
+
+    with pytest.raises(ValueError):
+        spec_for_kind(kind)
+
+
+def test_hw_device_spec_raises_on_cpu():
+    """The CPU backend has no table row: device_spec must not swallow
+    that into a default."""
+    from hspmv.hw import device_spec
+
+    with pytest.raises(ValueError):
+        device_spec()
 
 
 def test_format_overheads_keys():
@@ -86,22 +144,20 @@ def test_exact_rank_nb_banded_vs_general():
     assert rank_general > 3  # scattered pattern: no rank clustering
 
 
-def test_tpu_plan_kernel_choice():
-    # Tiny 5-point stencil: constant diagonals -> DIA wins since the
-    # sell candidate pays its real per-sub-tile fixed cost (r5); any
-    # slab kernel would also be correct here.
-    assert tpu_plan(laplacian_2d(16)).kernel in ("dia", "sell", "packed")
+def test_plan_layout_kernel_choice():
+    # Tiny 5-point stencil: constant diagonals pass the DIA gates.
+    assert plan_layout(laplacian_2d(16)).kernel == "dia"
     # Wide-band STENCIL (natural order, band 2048): constant diagonals
-    # -> the index-free DIA kernel wins outright (round 3).
+    # -> the index-free DIA layout.
     stencil = laplacian_2d(8, 2048)
-    plan = tpu_plan(stencil, assume_rcm=True)
+    plan = plan_layout(stencil, assume_rcm=True)
     assert plan.kernel == "dia", (plan.kernel, plan.reason)
     # Same band structure but offsets jittered per row: hundreds of
     # distinct diagonals (DIA inadmissible), yet the k-th nonzeros of
     # neighboring rows still cluster -> aligned rank windows win.
     import numpy as np
 
-    from tpu_spmv.formats.csr import CSRMatrix
+    from hspmv.formats.csr import CSRMatrix
 
     full = laplacian_2d(8, 2048)
     rng = np.random.default_rng(7)
@@ -113,37 +169,77 @@ def test_tpu_plan_kernel_choice():
     broken = CSRMatrix.from_coo(
         rows, cols, np.ones(full.nnz, np.float32), full.shape
     )
-    plan = tpu_plan(broken, assume_rcm=True)
-    # Aligned-window family (the packed mixed-height candidate competes
-    # with quantized ranked slabs since r4 — either is the right class).
+    plan = plan_layout(broken, assume_rcm=True)
+    # Window-relative columns (narrow index bytes) beat absolute ones.
     assert plan.kernel in ("ranked", "packed"), (plan.kernel, plan.reason)
-    assert plan.bin_blocks == 0  # aligned windows, not binned
-    # Random-within-band: no rank clustering -> binned windows beat the
-    # wide plain-kernel span loop. Quantized ranked or packed-binned
-    # (r5: same window family, quantum-free fill + in-kernel emit) are
-    # both the right class.
+    # Random-within-band and fully scattered: still a window-relative
+    # slab layout, chosen by device bytes (the reason says so).
     wide_random = random_banded(300_000, 1500, 8, seed=1)
-    plan = tpu_plan(wide_random, assume_rcm=True)
-    assert plan.kernel in ("ranked", "packed") and plan.bin_blocks > 0, (
-        plan.kernel, plan.bin_blocks, plan.reason
-    )
-    # Fully scattered: round 1 punted to segsum at ~0.1 GF/s; the binned
-    # mode bounds the gather loop regardless of structure.
+    plan = plan_layout(wide_random, assume_rcm=True)
+    assert plan.kernel in ("ranked", "packed"), (plan.kernel, plan.reason)
+    assert "fewest device bytes" in plan.reason
+    # Fully scattered: slot spans past the 8-bit window deltas leave the
+    # absolute-column layout or binned windows, whichever is smaller.
     scattered = random_general(300_000, 8, seed=2)
-    plan = tpu_plan(scattered, assume_rcm=True)
-    assert plan.kernel in ("ranked", "packed") and plan.bin_blocks > 0, (
-        plan.kernel, plan.bin_blocks, plan.reason
+    plan = plan_layout(scattered, assume_rcm=True)
+    assert plan.kernel in ("sell", "ranked", "packed"), plan.reason
+    assert plan.kernel == "sell" or plan.bin_blocks > 0, plan.reason
+
+
+def _slab_bytes(lay) -> int:
+    cols = getattr(lay, "lcols", None)
+    cols = lay.cols if cols is None else cols
+    return lay.vals.size * lay.vals.dtype.itemsize + cols.size * cols.dtype.itemsize
+
+
+@pytest.mark.parametrize("name", ["banded", "general", "powerlaw", "jittered"])
+def test_plan_layout_fewest_bytes(name):
+    """The planner's rule: the chosen slab layout, built for real, moves
+    (nearly) the fewest device bytes among sell / ranked / packed. Small
+    matrices are sampled whole, so the estimate is the layout itself up
+    to the slab-row quantum."""
+    from hspmv.bench.matrices import power_law
+    from hspmv.formats.packed import PackedRanked
+    from hspmv.formats.sell import RankedSlabs, SellSlabs
+
+    mat = {
+        "banded": lambda: random_banded(20_000, 300, 12, seed=1),
+        "general": lambda: random_general(20_000, 8, seed=2),
+        "powerlaw": lambda: power_law(20_000, 8, seed=3),
+        "jittered": lambda: random_banded(20_000, 40, 16, seed=4),
+    }[name]()
+    plan = plan_layout(mat, assume_rcm=True)
+    assert plan.kernel in ("sell", "ranked", "packed"), plan.reason
+    built = {"sell": _slab_bytes(SellSlabs.from_csr(mat))}
+    for kname, cls in (("ranked", RankedSlabs), ("packed", PackedRanked)):
+        try:
+            built[kname] = _slab_bytes(cls.from_csr(mat))
+        except ValueError:
+            pass
+    cls = {"sell": SellSlabs, "ranked": RankedSlabs, "packed": PackedRanked}
+    chosen = _slab_bytes(
+        cls[plan.kernel].from_csr(mat, bin_blocks=plan.bin_blocks)
     )
+    assert chosen <= 1.15 * min(built.values()), (plan.reason, chosen, built)
+    assert plan.est_cost > 0
 
 
-def test_tpu_plan_sigma_recommendation():
+@pytest.mark.parametrize("span,expect", [(1, 1), (2, 1), (3, 2), (256, 2), (257, 4)])
+def test_planner_local_column_bytes(span, expect):
+    from hspmv.tune.model import _lcol_bytes, slab_bytes
+
+    assert _lcol_bytes(span) == expect
+    assert slab_bytes(8, expect) == 8 * 128 * (4 + expect)
+
+
+def test_plan_layout_sigma_recommendation():
     """Skewed row lengths (power-law-ish) -> planner recommends the
     SELL-C-sigma row sort; uniform stencils -> no recommendation."""
     import numpy as np
 
-    from tpu_spmv.formats.csr import CSRMatrix
+    from hspmv.formats.csr import CSRMatrix
 
-    assert tpu_plan(laplacian_2d(64), assume_rcm=True).sigma == 0
+    assert plan_layout(laplacian_2d(64), assume_rcm=True).sigma == 0
 
     rng = np.random.default_rng(0)
     m = 20_000
@@ -152,37 +248,8 @@ def test_tpu_plan_sigma_recommendation():
     cols = np.minimum(rows + rng.integers(0, 200, rows.shape[0]), m - 1)
     vals = np.ones(rows.shape[0], np.float32)
     skewed = CSRMatrix.from_coo(rows, cols, vals, (m, m))
-    plan = tpu_plan(skewed, assume_rcm=True)
+    plan = plan_layout(skewed, assume_rcm=True)
     assert plan.sigma > 0, (plan.sigma, plan.reason)
-
-
-def test_calibration_overlay(tmp_path, monkeypatch):
-    """tools/tune.py --calibrate writes per-device-kind constants that
-    hw.kernel_calibration overlays onto the tune cost model."""
-    import json
-
-    from tpu_spmv.hw import device_spec, kernel_calibration
-    from tpu_spmv.tools.tune import fit_affine
-    from tpu_spmv.tune.model import _ranked_subtile_cost
-
-    # Affine fit recovers known constants from exact points.
-    a, b = fit_affine([(1, 4.25), (2, 5.2), (4, 7.1)])
-    assert abs(a - 3.3) < 1e-6 and abs(b - 0.95) < 1e-6
-
-    # Isolate from any REAL ~/.cache/tpu_spmv/calib.json (the on-chip
-    # batch writes one) before sampling the defaults.
-    monkeypatch.setenv("TPU_SPMV_CALIB", str(tmp_path / "missing.json"))
-    base = _ranked_subtile_cost(4)  # pairs=2, defaults
-    p = tmp_path / "calib.json"
-    p.write_text(json.dumps(
-        {device_spec().kind: {"ranked_fixed": 10.0, "pair_cost": 2.0}}
-    ))
-    monkeypatch.setenv("TPU_SPMV_CALIB", str(p))
-    assert kernel_calibration() == {"ranked_fixed": 10.0, "pair_cost": 2.0}
-    assert _ranked_subtile_cost(4) == 14.0
-    monkeypatch.setenv("TPU_SPMV_CALIB", str(tmp_path / "missing.json"))
-    assert kernel_calibration() == {}
-    assert _ranked_subtile_cost(4) == base
 
 
 def test_clone_layout_and_device_bytes():
@@ -192,11 +259,11 @@ def test_clone_layout_and_device_bytes():
     import jax
     import numpy as np
 
-    from tpu_spmv.bench.harness import clone_layout, device_bytes
-    from tpu_spmv.bench.matrices import laplacian_2d
-    from tpu_spmv.formats.dia import DiaSlabs
-    from tpu_spmv.formats.packed import PackedRanked
-    from tpu_spmv.formats.sell import RankedSlabs
+    from hspmv.bench.harness import clone_layout, device_bytes
+    from hspmv.bench.matrices import laplacian_2d
+    from hspmv.formats.dia import DiaSlabs
+    from hspmv.formats.packed import PackedRanked
+    from hspmv.formats.sell import RankedSlabs
 
     mat = laplacian_2d(48)
     for lay in (
@@ -212,27 +279,3 @@ def test_clone_layout_and_device_bytes():
             np.testing.assert_array_equal(np.asarray(la), np.asarray(lb))
             assert la is not lb
         assert device_bytes(lay) == device_bytes(cl) > 0
-
-
-def test_calibration_foreign_cache_does_not_shadow(tmp_path, monkeypatch):
-    """A cache file calibrated on a DIFFERENT device kind must not
-    shadow later candidates (review r5): kernel_calibration keeps
-    looking until it finds a non-empty entry for the current kind."""
-    import json
-
-    import tpu_spmv.hw as hw
-
-    foreign = tmp_path / "cache.json"
-    foreign.write_text(json.dumps({"not-this-kind": {"ranked_fixed": 1.0}}))
-    repo = tmp_path / "repo.json"
-    repo.write_text(json.dumps(
-        {hw.device_spec().kind: {"ranked_fixed": 7.5}}
-    ))
-    monkeypatch.delenv("TPU_SPMV_CALIB", raising=False)
-    monkeypatch.setattr(
-        "os.path.expanduser", lambda p: str(foreign)
-    )
-    monkeypatch.setattr(
-        "os.path.join", lambda *a: str(repo)
-    )
-    assert hw.kernel_calibration() == {"ranked_fixed": 7.5}

@@ -1,15 +1,13 @@
-"""DIA (diagonal-offset) layout + kernel for stencil matrices."""
+"""DIA (diagonal-offset) layout + plain-XLA SpMV for stencil matrices."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tpu_spmv.bench.matrices import laplacian_2d, random_banded, random_general
-from tpu_spmv.formats.csr import CSRMatrix
-from tpu_spmv.formats.dia import DiaSlabs, diagonal_profile
-from tpu_spmv.kernels.dia import (
-    dia_x_fits, spmv_dia, spmv_dia_reference, spmv_dia_windowed,
-)
+from hspmv.bench.matrices import laplacian_2d, random_banded, random_general
+from hspmv.formats.csr import CSRMatrix
+from hspmv.formats.dia import DiaSlabs, diagonal_profile
+from hspmv.kernels.dia import spmv_dia, spmv_dia_reference
 
 
 def _rel(y, y_ref):
@@ -36,24 +34,24 @@ def test_diagonal_profile():
 
 
 def test_dia_matches_oracle_stencil():
-    """5-point Laplacian: the flagship DIA shape. Offsets +-1 exercise
-    the cross-block lane roll; +-grid the aligned-load path."""
-    mat = laplacian_2d(40)  # m=1600, offsets 0,+-1,+-40 (all unaligned)
-    lay = DiaSlabs.from_csr(mat, rows_per_tile=1024)
+    """5-point Laplacian: the flagship DIA shape (offsets 0, +-1,
+    +-grid)."""
+    mat = laplacian_2d(40)  # m=1600, offsets 0,+-1,+-40
+    lay = DiaSlabs.from_csr(mat)
     assert lay.num_diagonals == 5
     x = np.random.default_rng(0).standard_normal(mat.n).astype(np.float32)
-    y = np.asarray(spmv_dia(lay, jnp.asarray(x), interpret=True))
+    y = np.asarray(spmv_dia(lay, jnp.asarray(x)))
     assert _rel(y, mat.matvec(x)) < 1e-6
     # The layout-level oracle agrees too (kernel vs layout separation).
     assert _rel(spmv_dia_reference(lay, x), mat.matvec(x)) < 1e-6
 
 
 def test_dia_matches_oracle_aligned_offsets():
-    """Grid 128 makes the +-grid arms lane-aligned (s == 0 path)."""
+    """Grid 128: offsets that are whole multiples of 128."""
     mat = laplacian_2d(128)
-    lay = DiaSlabs.from_csr(mat, rows_per_tile=2048)
+    lay = DiaSlabs.from_csr(mat)
     x = np.random.default_rng(1).standard_normal(mat.n).astype(np.float32)
-    y = np.asarray(spmv_dia(lay, jnp.asarray(x), interpret=True))
+    y = np.asarray(spmv_dia(lay, jnp.asarray(x)))
     assert _rel(y, mat.matvec(x)) < 1e-6
 
 
@@ -62,38 +60,38 @@ def test_dia_partial_diagonals():
     entries) still reproduce exactly: absent entries stay 0.0."""
     mat = random_banded(1000, 12, 6, seed=3)
     d, fill = diagonal_profile(mat)
-    lay = DiaSlabs.from_csr(mat, max_diags=40, max_fill=8.0,
-                            rows_per_tile=1024)
+    lay = DiaSlabs.from_csr(mat, max_diags=40, max_fill=8.0)
     assert lay.num_diagonals == d
     x = np.random.default_rng(2).standard_normal(mat.n).astype(np.float32)
-    y = np.asarray(spmv_dia(lay, jnp.asarray(x), interpret=True))
+    y = np.asarray(spmv_dia(lay, jnp.asarray(x)))
     assert _rel(y, mat.matvec(x)) < 1e-6
 
 
-def test_dia_windowed_matches_resident():
-    """HBM-windowed DIA (ROUND3_SUMMARY known limit closed): same layout
-    and results as the resident kernel with x streamed per tile —
-    multiple grid tiles, unaligned AND aligned offsets."""
-    for grid in (40, 128):  # 40: all arms unaligned; 128: +-grid aligned
-        mat = laplacian_2d(grid)
-        lay = DiaSlabs.from_csr(mat, rows_per_tile=1024)
-        x = np.random.default_rng(4).standard_normal(mat.n).astype(
-            np.float32
-        )
-        y_res = np.asarray(spmv_dia(lay, jnp.asarray(x), interpret=True))
-        y_win = np.asarray(
-            spmv_dia_windowed(lay, jnp.asarray(x), interpret=True)
-        )
-        assert _rel(y_win, mat.matvec(x)) < 1e-6
-        np.testing.assert_array_equal(y_win, y_res)
+@pytest.mark.parametrize("shape", [
+    ("lap2d", 24), ("lap2d", 33), ("lap3d", 9), ("band", 3), ("band", 17),
+])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_dia_plain_matches_layout_reference(shape, dtype):
+    """The plain-XLA DIA product against the layout-level NumPy oracle
+    (spmv_dia_reference) and the CSR oracle of the operator it stores:
+    first/last rows (diagonals leaving the matrix) included."""
+    from hspmv.bench.matrices import laplacian_3d
 
-
-def test_dia_x_fits_budget():
-    mat = laplacian_2d(64)
-    lay = DiaSlabs.from_csr(mat, rows_per_tile=1024)
-    assert dia_x_fits(lay)  # 4k rows trivially resident
-    # A tiny budget forces the windowed route.
-    assert not dia_x_fits(lay, budget_frac=1e-6)
+    kind, size = shape
+    if kind == "lap2d":
+        mat = laplacian_2d(size)
+    elif kind == "lap3d":
+        mat = laplacian_3d(size)
+    else:
+        mat = random_banded(900, size, 6, seed=size)
+    vdt = jnp.bfloat16 if dtype == "bf16" else None
+    lay = DiaSlabs.from_csr(mat, max_diags=64, max_fill=16.0, val_dtype=vdt)
+    x = np.random.default_rng(size).standard_normal(mat.n).astype(np.float32)
+    y = np.asarray(spmv_dia(lay, jnp.asarray(x)))
+    assert y.shape == (mat.m,)
+    assert _rel(y, spmv_dia_reference(lay, x)) < 1e-6
+    oracle = mat if vdt is None else mat.rounded(vdt)
+    assert _rel(y, oracle.matvec(x)) < 1e-6
 
 
 def test_dia_rejects_non_stencil():
@@ -113,8 +111,8 @@ def test_dia_rejects_empty_matrix():
     from_csr must reject it like any not-diagonal-structured matrix."""
     import pytest
 
-    from tpu_spmv.formats.csr import CSRMatrix
-    from tpu_spmv.formats.dia import DiaSlabs
+    from hspmv.formats.csr import CSRMatrix
+    from hspmv.formats.dia import DiaSlabs
 
     empty = CSRMatrix.from_coo([], [], [], (256, 256))
     with pytest.raises(ValueError):

@@ -8,10 +8,10 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from tpu_spmv.bench.matrices import laplacian_2d, random_banded
-from tpu_spmv.dist.sts import ShardedLowerSolve, sts_solve_sharded
-from tpu_spmv.sts.host import build_sts, compute_b
-from tpu_spmv.sts.solve import lower_solve_reference
+from hspmv.bench.matrices import laplacian_2d, random_banded
+from hspmv.dist.sts import ShardedLowerSolve, sts_solve_sharded
+from hspmv.sts.host import build_sts, compute_b
+from hspmv.sts.solve import lower_solve_reference
 
 
 def _rel(a, b):
@@ -47,7 +47,7 @@ def test_sharded_solve_matches_reference(n_dev):
 def test_sharded_solve_hybrid_mesh():
     """Over the multi-host (hosts, rows) mesh: the all-gather exchange
     and owner indexing span the flattened tuple axis."""
-    from tpu_spmv.dist.multihost import make_hybrid_mesh
+    from hspmv.dist.multihost import make_hybrid_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")

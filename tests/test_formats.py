@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from tpu_spmv.bench.matrices import laplacian_2d, random_banded, random_general
-from tpu_spmv.formats.csr import CSRMatrix
+from hspmv.bench.matrices import laplacian_2d, random_banded, random_general
+from hspmv.formats.csr import CSRMatrix
 
 
 def test_from_coo_dedup():
@@ -90,8 +90,8 @@ def test_shape_validation(m, n):
 def test_layout_save_load_roundtrip(tmp_path):
     import numpy as np
 
-    from tpu_spmv.bench.matrices import random_banded
-    from tpu_spmv.formats.sell import RankedSlabs, SellSlabs, load_layout
+    from hspmv.bench.matrices import random_banded
+    from hspmv.formats.sell import RankedSlabs, SellSlabs, load_layout
 
     mat = random_banded(400, 30, 6, seed=1)
     for Cls in (SellSlabs, RankedSlabs):
@@ -108,8 +108,8 @@ def test_layout_save_load_roundtrip(tmp_path):
 
 
 def test_layout_cache_rejects_wrong_matrix(tmp_path):
-    from tpu_spmv.bench.matrices import random_banded
-    from tpu_spmv.formats.sell import SellSlabs, load_layout
+    from hspmv.bench.matrices import random_banded
+    from hspmv.formats.sell import SellSlabs, load_layout
 
     mat = random_banded(400, 30, 6, seed=1)
     other = random_banded(400, 30, 6, seed=2)
@@ -124,12 +124,12 @@ def test_layout_cache_rejects_wrong_matrix(tmp_path):
 def test_sigma_sort_reduces_padding():
     import numpy as np
 
-    from tpu_spmv.bench.matrices import random_general
-    from tpu_spmv.formats.sell import SellSlabs, sigma_sort
+    from hspmv.bench.matrices import random_general
+    from hspmv.formats.sell import SellSlabs, sigma_sort
 
     # Skewed degrees: power-law-ish lengths via overlaying several
     # random matrices.
-    from tpu_spmv.formats.csr import CSRMatrix
+    from hspmv.formats.csr import CSRMatrix
 
     rng = np.random.default_rng(0)
     m = 4096
@@ -157,7 +157,7 @@ def test_sigma_sort_reduces_padding():
 def test_csr_diagonal():
     import numpy as np
 
-    from tpu_spmv.formats.csr import CSRMatrix
+    from hspmv.formats.csr import CSRMatrix
 
     m = CSRMatrix(
         np.array([0, 2, 3, 3]), np.array([0, 2, 1]),
@@ -174,9 +174,9 @@ def test_ranked_explicit_zero_entries():
     import numpy as np
     import jax.numpy as jnp
 
-    from tpu_spmv.formats.csr import CSRMatrix
-    from tpu_spmv.formats.sell import RankedSlabs
-    from tpu_spmv.kernels.pallas_sell import spmv_ranked
+    from hspmv.formats.csr import CSRMatrix
+    from hspmv.formats.sell import RankedSlabs
+    from hspmv.kernels.sell import spmv_ranked
 
     rng = np.random.default_rng(0)
     m = 300
@@ -189,7 +189,7 @@ def test_ranked_explicit_zero_entries():
     mat = CSRMatrix(indptr, indices, data, (m, m))
     lay = RankedSlabs.from_csr(mat, bin_blocks=2)
     x = rng.standard_normal(m).astype(np.float32)
-    y = np.asarray(spmv_ranked(lay, jnp.asarray(x), interpret=True))
+    y = np.asarray(spmv_ranked(lay, jnp.asarray(x)))
     ref = mat.matvec(x)
     rel = np.linalg.norm(y - ref) / max(np.linalg.norm(ref), 1e-30)
     assert rel < 1e-6, rel
@@ -201,8 +201,8 @@ def test_variable_stencil_structure():
     diagonal (distinguishes the DIA path's constant-friendly cases)."""
     import numpy as np
 
-    from tpu_spmv.bench.matrices import variable_stencil
-    from tpu_spmv.formats.dia import diagonal_profile
+    from hspmv.bench.matrices import variable_stencil
+    from hspmv.formats.dia import diagonal_profile
 
     mat = variable_stencil(48, seed=4)
     d, fill = diagonal_profile(mat)
@@ -217,15 +217,15 @@ def test_variable_stencil_structure():
 
 
 def test_ranked_tile_padup_correctness():
-    """r4 grid-tile pad-up: a layout whose natural total_k is NOT a
-    multiple of the tile must pad up to tile_k=2048 (inert rows, window-
-    safe pad bases) and still reproduce the oracle through the kernel."""
+    """Slab-row pad-up: a layout whose natural total_k is NOT a multiple
+    of the tile must pad up to tile_k=2048 (inert rows, window-safe pad
+    bases) and still reproduce the oracle."""
     import jax.numpy as jnp
 
-    from tpu_spmv.bench.matrices import random_banded
-    from tpu_spmv.formats.sell import RankedSlabs
-    from tpu_spmv.kernels.pallas_sell import spmv_ranked
-    from tpu_spmv.reorder import rcm
+    from hspmv.bench.matrices import random_banded
+    from hspmv.formats.sell import RankedSlabs
+    from hspmv.kernels.sell import spmv_ranked
+    from hspmv.reorder import rcm
 
     mat = random_banded(40_000, 400, 9, seed=7)
     mat = mat.permuted(rcm(mat.indptr, mat.indices))
@@ -233,11 +233,6 @@ def test_ranked_tile_padup_correctness():
     assert lay.tile_k == 2048  # padded up from the 512 quantum
     assert int(lay.vals.shape[0]) % 2048 == 0
     x = np.random.default_rng(3).standard_normal(mat.n).astype(np.float32)
-    y = np.asarray(spmv_ranked(lay, jnp.asarray(x), interpret=True))
+    y = np.asarray(spmv_ranked(lay, jnp.asarray(x)))
     y_ref = mat.matvec(x)
     assert np.linalg.norm(y - y_ref) / np.linalg.norm(y_ref) < 1e-6
-    # The HBM-windowed kernel reads the padded tile metadata too.
-    from tpu_spmv.kernels.pallas_sell import spmv_ranked_windowed
-
-    y_w = np.asarray(spmv_ranked_windowed(lay, jnp.asarray(x), interpret=True))
-    np.testing.assert_array_equal(y_w, y)

@@ -11,11 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_spmv.bench.matrices import (
+from hspmv.bench.matrices import (
     laplacian_2d, power_law, random_banded, random_general,
     variable_stencil,
 )
-from tpu_spmv.formats.csr import CSRMatrix
+from hspmv.formats.csr import CSRMatrix
 
 
 def _rel(a, b):
@@ -36,12 +36,12 @@ def _cases():
 
 @pytest.mark.parametrize("name,mat", _cases(), ids=lambda v: v if isinstance(v, str) else "")
 def test_all_kernels_agree(name, mat):
-    from tpu_spmv.formats.packed import PackedRanked
-    from tpu_spmv.formats.sell import RankedSlabs, SellSlabs
-    from tpu_spmv.kernels.packed import spmv_packed
-    from tpu_spmv.kernels.pallas_sell import spmv_ranked, spmv_sell
-    from tpu_spmv.kernels.segsum import SegsumLayout, spmv_segsum
-    from tpu_spmv.reorder.rcm import rcm
+    from hspmv.formats.packed import PackedRanked
+    from hspmv.formats.sell import RankedSlabs, SellSlabs
+    from hspmv.kernels.packed import spmv_packed
+    from hspmv.kernels.sell import spmv_ranked, spmv_sell
+    from hspmv.kernels.segsum import SegsumLayout, spmv_segsum
+    from hspmv.reorder.rcm import rcm
 
     mat = mat.permuted(rcm(mat.indptr, mat.indices))
     x = np.random.default_rng(0).standard_normal(mat.n).astype(np.float32)
@@ -50,7 +50,7 @@ def test_all_kernels_agree(name, mat):
 
     ran = {"segsum": np.asarray(spmv_segsum(SegsumLayout.from_csr(mat), xj))}
     ran["sell"] = np.asarray(
-        spmv_sell(SellSlabs.from_csr(mat), xj, interpret=True)
+        spmv_sell(SellSlabs.from_csr(mat), xj)
     )
     for bins in (0, 4, 16):
         try:
@@ -58,11 +58,11 @@ def test_all_kernels_agree(name, mat):
         except ValueError:
             continue  # packed-delta span exceeded: legitimate rejection
         ran[f"ranked_w{bins}"] = np.asarray(
-            spmv_ranked(lay, xj, interpret=True)
+            spmv_ranked(lay, xj)
         )
     try:
         ran["packed"] = np.asarray(
-            spmv_packed(PackedRanked.from_csr(mat), xj, interpret=True)
+            spmv_packed(PackedRanked.from_csr(mat), xj)
         )
     except ValueError:
         pass
@@ -72,33 +72,24 @@ def test_all_kernels_agree(name, mat):
         assert _rel(y, y_ref) < 1e-6, (name, kname)
 
 
-def test_striped_and_dia_agree_where_applicable():
-    from tpu_spmv.formats.dia import DiaSlabs
-    from tpu_spmv.kernels.dia import spmv_dia
-    from tpu_spmv.kernels.striped import StripedRanked, spmv_striped
+def test_dia_agrees_where_applicable():
+    from hspmv.formats.dia import DiaSlabs
+    from hspmv.kernels.dia import spmv_dia
 
     # DIA on the natural-order stencils.
     for mat in (laplacian_2d(33), variable_stencil(31, seed=2)):
         x = np.random.default_rng(1).standard_normal(mat.n).astype(
             np.float32
         )
-        y = np.asarray(spmv_dia(DiaSlabs.from_csr(mat), jnp.asarray(x),
-                                interpret=True))
+        y = np.asarray(spmv_dia(DiaSlabs.from_csr(mat), jnp.asarray(x)))
         assert _rel(y, mat.matvec(x)) < 1e-6
-
-    # Striped on scattered structure (forced small stripes).
-    mat = random_general(2600, 6, seed=9)
-    x = np.random.default_rng(2).standard_normal(mat.n).astype(np.float32)
-    lay = StripedRanked.from_csr(mat, stripe_cols=1024, bin_blocks=4)
-    y = np.asarray(spmv_striped(lay, jnp.asarray(x), interpret=True))
-    assert _rel(y, mat.matvec(x)) < 1e-6
 
 
 def test_rectangular_kernels_agree():
     """m != n (the reference's lp1-class rectangular inputs)."""
-    from tpu_spmv.formats.sell import RankedSlabs, SellSlabs
-    from tpu_spmv.kernels.pallas_sell import spmv_ranked, spmv_sell
-    from tpu_spmv.kernels.segsum import SegsumLayout, spmv_segsum
+    from hspmv.formats.sell import RankedSlabs, SellSlabs
+    from hspmv.kernels.sell import spmv_ranked, spmv_sell
+    from hspmv.kernels.segsum import SegsumLayout, spmv_segsum
 
     rng = np.random.default_rng(11)
     m, n, nnz = 900, 2300, 6200
@@ -111,9 +102,9 @@ def test_rectangular_kernels_agree():
     y_ref = mat.matvec(x)
     for mk in (
         lambda: spmv_segsum(SegsumLayout.from_csr(mat), xj),
-        lambda: spmv_sell(SellSlabs.from_csr(mat), xj, interpret=True),
+        lambda: spmv_sell(SellSlabs.from_csr(mat), xj),
         lambda: spmv_ranked(
-            RankedSlabs.from_csr(mat, bin_blocks=4), xj, interpret=True
+            RankedSlabs.from_csr(mat, bin_blocks=4), xj
         ),
     ):
         assert _rel(np.asarray(mk()), y_ref) < 1e-6
@@ -124,12 +115,11 @@ def test_rectangular_kernels_agree():
 )
 def test_spmm_kernels_agree(name, mat):
     """spmm_ranked / spmm_packed vs column-wise oracle on every fuzz
-    case where the layouts build (B=5: odd, exercises the masked
-    sub-VREG column path and non-divisible column chunking)."""
-    from tpu_spmv.formats.packed import PackedRanked
-    from tpu_spmv.formats.sell import RankedSlabs
-    from tpu_spmv.kernels.spmm import spmm_packed, spmm_ranked
-    from tpu_spmv.reorder.rcm import rcm
+    case where the layouts build (B=5: an odd batch width)."""
+    from hspmv.formats.packed import PackedRanked
+    from hspmv.formats.sell import RankedSlabs
+    from hspmv.kernels.spmm import spmm_packed, spmm_ranked
+    from hspmv.reorder.rcm import rcm
 
     B = 5
     mat = mat.permuted(rcm(mat.indptr, mat.indices))
@@ -145,7 +135,7 @@ def test_spmm_kernels_agree(name, mat):
         except ValueError:
             continue
         ran[f"spmm_ranked_w{bins}"] = np.asarray(
-            spmm_ranked(lay, Xj, interpret=True)
+            spmm_ranked(lay, Xj)
         )
     for bins in (0, 4):
         try:
@@ -153,7 +143,7 @@ def test_spmm_kernels_agree(name, mat):
         except ValueError:
             continue
         ran[f"spmm_packed_w{bins}"] = np.asarray(
-            spmm_packed(lay, Xj, interpret=True)
+            spmm_packed(lay, Xj)
         )
     assert ran, f"{name}: no SpMM layout built"
     for kname, Y in ran.items():

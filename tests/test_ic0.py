@@ -11,9 +11,9 @@ import numpy as np
 import scipy.sparse as sp
 from scipy.sparse.linalg import spsolve_triangular
 
-from tpu_spmv.bench.matrices import laplacian_2d, random_banded
-from tpu_spmv.sts.host import split_lu
-from tpu_spmv.sts.ic0 import (
+from hspmv.bench.matrices import laplacian_2d, random_banded
+from hspmv.sts.host import split_lu
+from hspmv.sts.ic0 import (
     IC0Preconditioner, _ic0_numpy, ic0_factor, pcg_ic0_solve,
 )
 
@@ -21,7 +21,7 @@ from tpu_spmv.sts.ic0 import (
 def test_ic0_native_numpy_parity_and_pattern():
     import pytest
 
-    from tpu_spmv.reorder import native
+    from hspmv.reorder import native
 
     if not native.available():
         pytest.skip("native core unavailable; parity would be vacuous")
@@ -61,16 +61,16 @@ def test_ic0_apply_matches_scipy_two_solves():
     r = np.random.default_rng(0).standard_normal(mat.m).astype(np.float32)
     y = spsolve_triangular(Ls.tocsr(), r.astype(np.float64), lower=True)
     z_ref = spsolve_triangular(sp.csr_matrix(Ls.T), y, lower=False)
-    z = np.asarray(pre.apply(jnp.asarray(r), interpret=True))
+    z = np.asarray(pre.apply(jnp.asarray(r)))
     assert np.linalg.norm(z - z_ref) / np.linalg.norm(z_ref) < 1e-6
 
 
 def test_pcg_ic0_beats_plain_cg():
     """On the Laplacian (the slow-CG class) IC(0) must cut the residual
     by orders of magnitude at equal iteration count."""
-    from tpu_spmv.formats.sell import RankedSlabs
-    from tpu_spmv.kernels.pallas_sell import spmv_ranked
-    from tpu_spmv.reorder.rcm import rcm
+    from hspmv.formats.sell import RankedSlabs
+    from hspmv.kernels.sell import spmv_ranked
+    from hspmv.reorder.rcm import rcm
 
     mat = laplacian_2d(48)
     mat = mat.permuted(rcm(mat.indptr, mat.indices))
@@ -79,14 +79,14 @@ def test_pcg_ic0_beats_plain_cg():
     bj = jnp.asarray(b)
 
     pre = IC0Preconditioner.build(mat)
-    x, _ = pcg_ic0_solve(lay, bj, pre, iters=30, interpret=True)
+    x, _ = pcg_ic0_solve(lay, bj, pre, iters=30)
     res_ic0 = np.linalg.norm(mat.matvec(np.asarray(x)) - b)
 
     x = jnp.zeros_like(bj)
     r = p = bj
     rz = jnp.vdot(r, r)
     for _ in range(30):
-        Ap = spmv_ranked(lay, p, interpret=True)
+        Ap = spmv_ranked(lay, p)
         alpha = rz / jnp.vdot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
@@ -98,7 +98,7 @@ def test_pcg_ic0_beats_plain_cg():
 
 
 def test_solve_cli_ic0(capsys):
-    from tpu_spmv.tools import solve
+    from hspmv.tools import solve
 
     rc = solve.main([
         "synthetic:banded_1k", "--iters", "25", "--precond", "ic0",
@@ -114,11 +114,11 @@ def test_pcg_ic0_sharded_matches_single_chip():
     import jax
     import pytest
 
-    from tpu_spmv.dist.sharding import (
+    from hspmv.dist.sharding import (
         ShardedRanked, make_row_mesh, shard_vector,
     )
-    from tpu_spmv.reorder.rcm import rcm
-    from tpu_spmv.sts.ic0 import ShardedIC0Preconditioner, pcg_ic0_sharded
+    from hspmv.reorder.rcm import rcm
+    from hspmv.sts.ic0 import ShardedIC0Preconditioner, pcg_ic0_sharded
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 devices")
@@ -146,7 +146,7 @@ def _block_jacobi_oracle(mat, D, rows_per_shard, r):
         r1 = min((d + 1) * rows_per_shard, mat.m)
         if r1 == r0:
             continue
-        from tpu_spmv.formats.csr import CSRMatrix
+        from hspmv.formats.csr import CSRMatrix
 
         block = CSRMatrix.from_scipy(
             mat.to_scipy().tocsr()[r0:r1, r0:r1].tocsr()
@@ -169,10 +169,10 @@ def test_block_jacobi_ic0_apply_matches_blockwise_scipy():
     import jax
     import pytest
 
-    from tpu_spmv.dist.sharding import (
+    from hspmv.dist.sharding import (
         ShardedRanked, make_row_mesh, shard_vector,
     )
-    from tpu_spmv.sts.ic0 import BlockJacobiIC0Preconditioner
+    from hspmv.sts.ic0 import BlockJacobiIC0Preconditioner
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
@@ -189,7 +189,7 @@ def test_block_jacobi_ic0_apply_matches_blockwise_scipy():
     r = np.zeros(lay.padded_m, np.float32)
     r[: mat.m] = rng.standard_normal(mat.m).astype(np.float32)
     z = np.asarray(
-        pre.apply(shard_vector(r, mesh), mesh, interpret=True)
+        pre.apply(shard_vector(r, mesh), mesh)
     )
     z_ref = _block_jacobi_oracle(mat, D, pre.rows_per_shard, r)
     assert np.linalg.norm(z - z_ref) / np.linalg.norm(z_ref) < 1e-6
@@ -204,11 +204,11 @@ def test_pcg_block_jacobi_ic0_converges():
     import jax
     import pytest
 
-    from tpu_spmv.dist.sharding import (
+    from hspmv.dist.sharding import (
         ShardedRanked, make_row_mesh, shard_vector,
     )
-    from tpu_spmv.reorder.rcm import rcm
-    from tpu_spmv.sts.ic0 import (
+    from hspmv.reorder.rcm import rcm
+    from hspmv.sts.ic0 import (
         BlockJacobiIC0Preconditioner, pcg_ic0_sharded,
     )
 
@@ -236,7 +236,7 @@ def test_solve_cli_ic0_distributed(capsys):
     import jax
     import pytest
 
-    from tpu_spmv.tools import solve
+    from hspmv.tools import solve
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 devices")
@@ -252,7 +252,7 @@ def test_solve_cli_ic0_block_jacobi(capsys):
     import jax
     import pytest
 
-    from tpu_spmv.tools import solve
+    from hspmv.tools import solve
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 devices")

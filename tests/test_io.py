@@ -1,14 +1,14 @@
 import numpy as np
 
-from tpu_spmv.bench.matrices import random_banded
-from tpu_spmv.formats.csr import CSRMatrix
-from tpu_spmv.io.csr_text import (
+from hspmv.bench.matrices import random_banded
+from hspmv.formats.csr import CSRMatrix
+from hspmv.io.csr_text import (
     read_csr3_text,
     read_csr_text,
     write_csr3_text,
     write_csr_text,
 )
-from tpu_spmv.io.matrix_market import read_mtx, write_mtx
+from hspmv.io.matrix_market import read_mtx, write_mtx
 
 
 def _assert_same(a: CSRMatrix, b: CSRMatrix):
@@ -87,9 +87,9 @@ def test_csr3_round_trip(tmp_path):
 def test_csr2_roundtrip(tmp_path):
     import numpy as np
 
-    from tpu_spmv.bench.matrices import random_banded
-    from tpu_spmv.formats.csrk import CSRkMatrix
-    from tpu_spmv.io.csr_text import read_csr2_text, write_csr2_text
+    from hspmv.bench.matrices import random_banded
+    from hspmv.formats.csrk import CSRkMatrix
+    from hspmv.io.csr_text import read_csr2_text, write_csr2_text
 
     mat = random_banded(500, 30, 8, seed=0)
     ck = CSRkMatrix.build(mat, k=2, sup_row_sizes=(16,))

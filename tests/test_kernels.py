@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tpu_spmv.bench.matrices import laplacian_2d, random_banded, random_general
-from tpu_spmv.kernels.segsum import SegsumLayout, spmv_segsum
+from hspmv.bench.matrices import laplacian_2d, random_banded, random_general
+from hspmv.kernels.segsum import SegsumLayout, spmv_segsum
 
 
 def _rel_l2(a, b):
@@ -20,7 +20,7 @@ def test_segsum_matches_oracle():
 
 
 def test_segsum_empty_rows():
-    from tpu_spmv.formats.csr import CSRMatrix
+    from hspmv.formats.csr import CSRMatrix
 
     mat = CSRMatrix.from_coo([0, 2], [1, 0], [2.0, 3.0], (3, 2))
     layout = SegsumLayout.from_csr(mat)
@@ -32,15 +32,15 @@ def test_spmm_matches_columnwise_spmv():
     import numpy as np
     import jax.numpy as jnp
 
-    from tpu_spmv.bench.matrices import random_banded
-    from tpu_spmv.formats.sell import RankedSlabs
-    from tpu_spmv.kernels.spmm import spmm_ranked
+    from hspmv.bench.matrices import random_banded
+    from hspmv.formats.sell import RankedSlabs
+    from hspmv.kernels.spmm import spmm_ranked
 
     mat = random_banded(256, 24, 6, seed=1)
     lay = RankedSlabs.from_csr(mat)
     B = 3
     X = np.random.default_rng(0).standard_normal((mat.n, B)).astype(np.float32)
-    Y = np.asarray(spmm_ranked(lay, jnp.asarray(X), interpret=True))
+    Y = np.asarray(spmm_ranked(lay, jnp.asarray(X)))
     Yref = np.stack([mat.matvec(X[:, b]) for b in range(B)], axis=1)
     assert (
         np.linalg.norm(Y - Yref) / np.linalg.norm(Yref) < 1e-6
@@ -52,41 +52,19 @@ def test_spmm_on_binned_layout():
     window fields are group/bin-consistent with lcols by construction."""
     import jax.numpy as jnp
 
-    from tpu_spmv.bench.matrices import random_general
-    from tpu_spmv.formats.sell import RankedSlabs
-    from tpu_spmv.kernels.spmm import spmm_ranked
+    from hspmv.bench.matrices import random_general
+    from hspmv.formats.sell import RankedSlabs
+    from hspmv.kernels.spmm import spmm_ranked
 
     mat = random_general(500, 8, seed=4)
     lay = RankedSlabs.from_csr(mat, bin_blocks=4, allow_groups=False)
     rng = np.random.default_rng(0)
     X = rng.standard_normal((mat.n, 4)).astype(np.float32)
-    Y = np.asarray(spmm_ranked(lay, jnp.asarray(X), interpret=True))
+    Y = np.asarray(spmm_ranked(lay, jnp.asarray(X)))
     Y_ref = np.stack([mat.matvec(X[:, b]) for b in range(4)], axis=1)
     rel = np.linalg.norm(Y - Y_ref) / np.linalg.norm(Y_ref)
     assert rel < 1e-6, rel
 
-
-def test_spmm_windowed_matches_resident():
-    """HBM-windowed SpMM (X streamed in per-tile windows) reproduces the
-    resident kernel's accumulation exactly."""
-    from tpu_spmv.bench.matrices import random_banded
-    from tpu_spmv.formats.sell import RankedSlabs
-    from tpu_spmv.kernels.spmm import spmm_ranked, spmm_ranked_windowed
-
-    B = 3
-    mat = random_banded(640, 40, 7, seed=6)
-    lay = RankedSlabs.from_csr(mat)
-    assert lay.win_w > 0
-    X = np.random.default_rng(7).standard_normal((mat.n, B)).astype(
-        np.float32
-    )
-    Y_res = np.asarray(spmm_ranked(lay, jnp.asarray(X), interpret=True))
-    Y_win = np.asarray(
-        spmm_ranked_windowed(lay, jnp.asarray(X), interpret=True)
-    )
-    Y_ref = np.stack([mat.matvec(X[:, b]) for b in range(B)], axis=1)
-    assert np.linalg.norm(Y_res - Y_ref) / np.linalg.norm(Y_ref) < 1e-6
-    np.testing.assert_array_equal(Y_res, Y_win)
 
 
 def test_validate_magnitude_aware_tolerance():
@@ -94,7 +72,7 @@ def test_validate_magnitude_aware_tolerance():
     semantics (abs 0.01, spmv-csrk/spmv.cpp:202-211) for O(1) entries,
     relative beyond — fp32 rounding on large-magnitude y (the r4 fem_1m
     cotangent-stiffness row) must not read as wrong."""
-    from tpu_spmv.bench.harness import validate
+    from hspmv.bench.harness import validate
 
     oracle = np.array([0.5, -0.25, 2.0e6, -3.0e6], np.float64)
     # O(1) entries: abs semantics (0.02 > 0.01 is wrong, 0.005 is not).
@@ -110,7 +88,7 @@ def test_validate_magnitude_aware_tolerance():
 def test_dense_baseline_matches_oracle_and_caps():
     import pytest
 
-    from tpu_spmv.kernels.dense import DenseLayout, spmv_dense
+    from hspmv.kernels.dense import DenseLayout, spmv_dense
 
     for mat in [laplacian_2d(24), random_general(500, 6, seed=3)]:
         x = np.random.default_rng(0).standard_normal(mat.n).astype(np.float32)
@@ -118,7 +96,7 @@ def test_dense_baseline_matches_oracle_and_caps():
         y = np.asarray(spmv_dense(lay, jnp.asarray(x)))
         assert _rel_l2(y, mat.matvec(x)) < 1e-6
     # rectangular: m != n
-    from tpu_spmv.formats.csr import CSRMatrix
+    from hspmv.formats.csr import CSRMatrix
 
     rect = CSRMatrix.from_coo([0, 2], [1, 0], [2.0, 3.0], (3, 2))
     yr = np.asarray(spmv_dense(DenseLayout.from_csr(rect),

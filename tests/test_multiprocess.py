@@ -33,17 +33,17 @@ _WORKER = textwrap.dedent(
 
     import numpy as np
 
-    from tpu_spmv.dist.multihost import initialize, make_hybrid_mesh
+    from hspmv.dist.multihost import initialize, make_hybrid_mesh
 
     assert initialize() is True, "env autodetect failed"
     assert jax.process_count() == 2
     assert len(jax.devices()) == 4  # 2 local per process, global view
 
-    from tpu_spmv.bench.matrices import random_banded
-    from tpu_spmv.dist.sharding import (
+    from hspmv.bench.matrices import random_banded
+    from hspmv.dist.sharding import (
         ShardedRanked, shard_vector, spmv_sharded,
     )
-    from tpu_spmv.dist.solvers import cg_solve
+    from hspmv.dist.solvers import cg_solve
 
     mesh = make_hybrid_mesh()
     assert mesh.devices.shape == (2, 2), mesh.devices.shape
@@ -93,7 +93,7 @@ _WORKER = textwrap.dedent(
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from tpu_spmv.dist.sharding import spmm_sharded
+    from hspmv.dist.sharding import spmm_sharded
 
     B = 3
     X = np.random.default_rng(2).standard_normal((mat.n, B)).astype(
@@ -118,7 +118,7 @@ _WORKER = textwrap.dedent(
     # Overlapped SpMV: the interior/edge split's edge ppermutes cross
     # the process (DCN-analog) boundary — where the overlap actually
     # pays (docs/PERF_NOTES.md overlap model).
-    from tpu_spmv.dist.sharding import OverlapRanked, spmv_overlap
+    from hspmv.dist.sharding import OverlapRanked, spmv_overlap
 
     olay = OverlapRanked.build(mat, D)
     assert olay.edge.nnz > 0
@@ -150,11 +150,12 @@ def test_two_process_distributed_spmv(tmp_path):
     procs = []
     for pid in range(2):
         env = dict(os.environ)
-        env.pop("JAX_PLATFORMS", None)
+        # Pin the children to the CPU: they must never open a card.
+        env["JAX_PLATFORMS"] = "cpu"
         env.update(
-            TPU_SPMV_COORDINATOR=f"127.0.0.1:{port}",
-            TPU_SPMV_NUM_PROCESSES="2",
-            TPU_SPMV_PROCESS_ID=str(pid),
+            HSPMV_COORDINATOR=f"127.0.0.1:{port}",
+            HSPMV_NUM_PROCESSES="2",
+            HSPMV_PROCESS_ID=str(pid),
             PYTHONPATH=os.pathsep.join(p for p in sys.path if p),
         )
         procs.append(

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from tpu_spmv.bench.matrices import laplacian_2d, random_banded, random_general
-from tpu_spmv.formats.csr import CSRMatrix
-from tpu_spmv.reorder import native
-from tpu_spmv.reorder.coarsen import hand_coarsen as np_hand_coarsen
-from tpu_spmv.reorder.rcm import rcm as np_rcm
+from hspmv.bench.matrices import laplacian_2d, random_banded, random_general
+from hspmv.formats.csr import CSRMatrix
+from hspmv.reorder import native
+from hspmv.reorder.coarsen import hand_coarsen as np_hand_coarsen
+from hspmv.reorder.rcm import rcm as np_rcm
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason=f"native core unavailable: {native.load_error()}"
@@ -96,7 +96,7 @@ def test_greedy_color_parity_and_validity():
     off = rows != cols
     assert (color[rows[off]] != color[cols[off]]).all()
     # Exact parity with the pure-Python first-fit reference.
-    from tpu_spmv.sts import host as sts_host
+    from hspmv.sts import host as sts_host
 
     mark = np.full(mat.m + 1, -1, dtype=np.int64)
     ref = np.full(mat.m, -1, dtype=np.int64)
@@ -133,9 +133,9 @@ def test_level_schedule_parity():
 def test_aligned_slots_parity(monkeypatch):
     """Native aligned-slots must match the NumPy implementation exactly
     (it is the layout-build hot loop; VERDICT r1 #6)."""
-    import tpu_spmv.formats.sell as sellmod
-    from tpu_spmv.bench.matrices import laplacian_2d, random_banded, random_general
-    from tpu_spmv.reorder import native
+    import hspmv.formats.sell as sellmod
+    from hspmv.bench.matrices import laplacian_2d, random_banded, random_general
+    from hspmv.reorder import native
 
     if not native.available():
         pytest.skip(f"native core unavailable: {native.load_error()}")
@@ -153,9 +153,9 @@ def test_binned_slots_parity(monkeypatch):
     """Native column-binned slots (incl. the packed-delta repair) must
     match the NumPy implementation exactly (VERDICT r2 #7: the Python
     per-entry repair loop crawled on adversarial scattered chunks)."""
-    import tpu_spmv.formats.sell as sellmod
-    from tpu_spmv.bench.matrices import laplacian_2d, random_banded, random_general
-    from tpu_spmv.reorder import native
+    import hspmv.formats.sell as sellmod
+    from hspmv.bench.matrices import laplacian_2d, random_banded, random_general
+    from hspmv.reorder import native
 
     if not native.available():
         pytest.skip(f"native core unavailable: {native.load_error()}")
@@ -195,8 +195,8 @@ def test_binned_slots_scales():
     seconds on the native path (VERDICT r2 #7 done-criterion)."""
     import time
 
-    from tpu_spmv.bench.matrices import random_general
-    from tpu_spmv.reorder import native
+    from hspmv.bench.matrices import random_general
+    from hspmv.reorder import native
 
     if not native.available():
         pytest.skip(f"native core unavailable: {native.load_error()}")
@@ -212,9 +212,9 @@ def test_binned_slots_scales():
 def test_maximal_matching_parity(monkeypatch):
     """Native matching must be bit-identical to the NumPy loop for every
     mode (VERDICT r1 missing #5: the Python loop was scale-unusable)."""
-    import tpu_spmv.reorder.coarsen as cz
-    from tpu_spmv.bench.matrices import random_general
-    from tpu_spmv.reorder import native
+    import hspmv.reorder.coarsen as cz
+    from hspmv.bench.matrices import random_general
+    from hspmv.reorder import native
 
     if not native.available():
         pytest.skip(f"native core unavailable: {native.load_error()}")
@@ -235,9 +235,9 @@ def test_matching_coarsen_scales():
     """Native path makes matching coarsening usable at 200k vertices."""
     import time
 
-    from tpu_spmv.bench.matrices import laplacian_2d
-    from tpu_spmv.reorder import native
-    from tpu_spmv.reorder.coarsen import matching_coarsen
+    from hspmv.bench.matrices import laplacian_2d
+    from hspmv.reorder import native
+    from hspmv.reorder.coarsen import matching_coarsen
 
     if not native.available():
         pytest.skip(f"native core unavailable: {native.load_error()}")

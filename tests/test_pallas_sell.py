@@ -2,10 +2,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tpu_spmv.bench.matrices import laplacian_2d, random_banded, random_general
-from tpu_spmv.formats.csr import CSRMatrix
-from tpu_spmv.formats.sell import SellSlabs, LANES, SUBLANES
-from tpu_spmv.kernels.pallas_sell import spmv_sell, spmv_sell_reference
+from hspmv.bench.matrices import laplacian_2d, random_banded, random_general
+from hspmv.formats.csr import CSRMatrix
+from hspmv.formats.sell import SellSlabs, LANES, SUBLANES
+from hspmv.kernels.sell import spmv_sell, spmv_sell_reference
 
 
 def _rel(a, b):
@@ -26,7 +26,7 @@ def test_sell_matches_oracle(mat):
     x = np.random.default_rng(0).standard_normal(mat.n).astype(np.float32)
     y_ref = mat.matvec(x)
     assert _rel(spmv_sell_reference(lay, x), y_ref) < 1e-6
-    y = np.asarray(spmv_sell(lay, jnp.asarray(x), interpret=True))
+    y = np.asarray(spmv_sell(lay, jnp.asarray(x)))
     assert _rel(y, y_ref) < 1e-6
 
 
@@ -58,7 +58,7 @@ def test_sell_empty_rows_and_ragged_m():
     x = np.arange(151, dtype=np.float32)
     y = spmv_sell_reference(lay, x)
     np.testing.assert_allclose(y, mat.matvec(x), rtol=1e-5)
-    y2 = np.asarray(spmv_sell(lay, jnp.asarray(x), interpret=True))
+    y2 = np.asarray(spmv_sell(lay, jnp.asarray(x)))
     np.testing.assert_allclose(y2, mat.matvec(x), rtol=1e-5)
 
 
@@ -66,41 +66,27 @@ def test_sell_single_chunk():
     mat = random_banded(64, 10, 4, seed=4)
     lay = SellSlabs.from_csr(mat)
     x = np.random.default_rng(1).standard_normal(64).astype(np.float32)
-    y = np.asarray(spmv_sell(lay, jnp.asarray(x), interpret=True))
+    y = np.asarray(spmv_sell(lay, jnp.asarray(x)))
     assert _rel(y, mat.matvec(x)) < 1e-6
 
 
-def test_windowed_matches_resident():
-    from tpu_spmv.formats.sell import RankedSlabs
-    from tpu_spmv.kernels.pallas_sell import spmv_ranked, spmv_ranked_windowed
-
-    mat = random_banded(384, 30, 6, seed=4)
-    lay = RankedSlabs.from_csr(mat)
-    x = np.random.default_rng(0).standard_normal(mat.n).astype(np.float32)
-    y_res = np.asarray(spmv_ranked(lay, jnp.asarray(x), interpret=True))
-    y_win = np.asarray(spmv_ranked_windowed(lay, jnp.asarray(x), interpret=True))
-    y_ref = mat.matvec(x)
-    assert _rel(y_res, y_ref) < 1e-6
-    assert _rel(y_win, y_ref) < 1e-6
-    np.testing.assert_array_equal(y_res, y_win)  # identical accumulation
-
 
 def test_ranked_matches_oracle():
-    from tpu_spmv.formats.sell import RankedSlabs
-    from tpu_spmv.kernels.pallas_sell import spmv_ranked
+    from hspmv.formats.sell import RankedSlabs
+    from hspmv.kernels.sell import spmv_ranked
 
     # Small sizes: interpret mode executes eagerly per sub-tile.
     for mat in (laplacian_2d(16), random_banded(192, 24, 6, seed=1),
                 random_general(140, 5, seed=2)):
         lay = RankedSlabs.from_csr(mat)
         x = np.random.default_rng(0).standard_normal(mat.n).astype(np.float32)
-        y = np.asarray(spmv_ranked(lay, jnp.asarray(x), interpret=True))
+        y = np.asarray(spmv_ranked(lay, jnp.asarray(x)))
         assert _rel(y, mat.matvec(x)) < 1e-6
 
 
 def _binned_parity(mats, widths):
-    from tpu_spmv.formats.sell import RankedSlabs
-    from tpu_spmv.kernels.pallas_sell import spmv_ranked
+    from hspmv.formats.sell import RankedSlabs
+    from hspmv.kernels.sell import spmv_ranked
 
     for mat in mats:
         x = np.random.default_rng(0).standard_normal(mat.n).astype(np.float32)
@@ -108,7 +94,7 @@ def _binned_parity(mats, widths):
         for w in widths:
             lay = RankedSlabs.from_csr(mat, bin_blocks=w)
             assert lay.rank_nb <= w
-            y = np.asarray(spmv_ranked(lay, jnp.asarray(x), interpret=True))
+            y = np.asarray(spmv_ranked(lay, jnp.asarray(x)))
             assert _rel(y, y_ref) < 1e-6, (w, mat.shape)
 
 
@@ -121,7 +107,7 @@ def test_binned_matches_oracle():
 @pytest.mark.slow
 def test_binned_matches_oracle_full():
     """Full parity matrix: every bin width on scattered, banded, and
-    stencil structure (TPU_SPMV_FULL_TESTS=1)."""
+    stencil structure (HSPMV_FULL_TESTS=1)."""
     _binned_parity(
         (random_general(2000, 8, seed=2),
          random_banded(1500, 300, 8, seed=1),
@@ -138,7 +124,7 @@ def test_binned_wide_fori_path():
 
 def test_binned_slots_invariants():
     """Every slot's columns stay inside one bin; entry count preserved."""
-    from tpu_spmv.formats.sell import _binned_slots
+    from hspmv.formats.sell import _binned_slots
 
     mat = random_general(3000, 10, seed=7)
     for w in (1, 4):

@@ -1,15 +1,15 @@
 import numpy as np
 import pytest
 
-from tpu_spmv.bench.matrices import (
+from hspmv.bench.matrices import (
     laplacian_2d,
     random_banded,
     random_general,
 )
-from tpu_spmv.formats.csrk import CSRkMatrix
-from tpu_spmv.reorder.coarsen import WeightedGraph, hand_coarsen, matching_coarsen
-from tpu_spmv.reorder.compose import uncoarsen_compose
-from tpu_spmv.reorder.rcm import bandwidth, rcm
+from hspmv.formats.csrk import CSRkMatrix
+from hspmv.reorder.coarsen import WeightedGraph, hand_coarsen, matching_coarsen
+from hspmv.reorder.compose import uncoarsen_compose
+from hspmv.reorder.rcm import bandwidth, rcm
 
 
 def _is_perm(p, n):
@@ -57,7 +57,7 @@ def test_rcm_disconnected_components():
     # Two disjoint paths.
     rows = [0, 1, 1, 2, 3, 4, 4, 5]
     cols = [1, 0, 2, 1, 4, 3, 5, 4]
-    from tpu_spmv.formats.csr import CSRMatrix
+    from hspmv.formats.csr import CSRMatrix
 
     mat = CSRMatrix.from_coo(rows, cols, np.ones(8, np.float32), (6, 6))
     perm = rcm(mat.indptr, mat.indices)

@@ -9,8 +9,8 @@ Reference behavior under test: preprocessingForSTS pack construction
 import numpy as np
 import pytest
 
-from tpu_spmv.bench.matrices import laplacian_2d, random_banded, random_general
-from tpu_spmv.sts.host import (
+from hspmv.bench.matrices import laplacian_2d, random_banded, random_general
+from hspmv.sts.host import (
     build_sts,
     check_error,
     compute_b,
@@ -18,7 +18,7 @@ from tpu_spmv.sts.host import (
     greedy_color,
     split_lu,
 )
-from tpu_spmv.sts.solve import LowerSolveLayout, lower_solve, lower_solve_reference
+from hspmv.sts.solve import LowerSolveLayout, lower_solve, lower_solve_reference
 
 
 def _rel(a, b):
@@ -27,8 +27,7 @@ def _rel(a, b):
     )
 
 
-# Small sizes: the device solve runs in Pallas interpreter mode on CPU,
-# which dispatches eagerly per sub-tile (minutes at 500+ rows).
+# Small sizes keep the serial oracle and the CPU solve fast.
 MATS = {
     "lap2d": laplacian_2d(12),
     "banded": random_banded(200, 18, 6, seed=1),
@@ -72,7 +71,7 @@ def test_greedy_color_proper():
 @pytest.mark.parametrize("order_type", ["LS", "COLOR"])
 @pytest.mark.parametrize("name", list(MATS))
 def test_packs_are_independent_sets(order_type, name):
-    """The invariant the TPU solver relies on: no L entries between rows
+    """The invariant the level-scheduled solve relies on: no L entries between rows
     of the same pack (after the pack permutation)."""
     sys = build_sts(MATS[name], order_type=order_type)
     pack_of = np.zeros(sys.matrix.m, dtype=np.int64)
@@ -110,7 +109,7 @@ def test_lower_solve_matches_oracle(order_type, name):
     np.testing.assert_allclose(x_ref, np.ones(sys.matrix.m), rtol=1e-5)
 
     layout = LowerSolveLayout.build(sys, b)
-    x = np.asarray(lower_solve(layout, interpret=True))
+    x = np.asarray(lower_solve(layout))
     assert _rel(x, x_ref) < 1e-5
     assert abs(check_error(x)) < 1e-2 * sys.matrix.m
 
@@ -122,7 +121,7 @@ def test_lower_solve_random_rhs():
     b = rng.standard_normal(mat.m).astype(np.float32)
     x_ref = lower_solve_reference(sys, b)
     layout = LowerSolveLayout.build(sys, b)
-    x = np.asarray(lower_solve(layout, interpret=True))
+    x = np.asarray(lower_solve(layout))
     assert _rel(x, x_ref) < 1e-5
 
 
@@ -131,20 +130,20 @@ def test_lower_solve_k3():
     sys = build_sts(mat, order_type="LS", k=3, sup_row_sizes=(8,))
     b = compute_b(sys.lower)
     layout = LowerSolveLayout.build(sys, b)
-    x = np.asarray(lower_solve(layout, interpret=True))
+    x = np.asarray(lower_solve(layout))
     assert _rel(x, np.ones(mat.m)) < 1e-5
 
 
 def test_scattered_dependencies_use_binned_path():
     """Level-scheduled random-banded system: the level permutation
-    scatters each row's parents across all earlier packs. The binned
-    rank windows must engage (round 1 fell to a ~500-iteration dynamic
-    gather loop, ~120ms at 32k rows; binned: 0.7ms on v5e)."""
+    scatters each row's parents across all earlier packs. The solve
+    gathers them from x at absolute columns, one step per level (a
+    level never splits across a step boundary mid-chunk)."""
     import numpy as np
 
-    from tpu_spmv.bench.matrices import random_banded
-    from tpu_spmv.sts.host import build_sts, compute_b
-    from tpu_spmv.sts.solve import (
+    from hspmv.bench.matrices import random_banded
+    from hspmv.sts.host import build_sts, compute_b
+    from hspmv.sts.solve import (
         LowerSolveLayout, lower_solve, lower_solve_reference,
     )
 
@@ -152,9 +151,8 @@ def test_scattered_dependencies_use_binned_path():
     sysm = build_sts(smat, order_type="LS")
     b = compute_b(sysm.lower)
     lay = LowerSolveLayout.build(sysm, b)
-    assert lay.ranked is not None, "binned fallback must engage"
-    assert lay.ranked.rank_nb <= 8  # bounded gather loop
-    x = np.asarray(lower_solve(lay, interpret=True))
+    assert lay.sched.num_steps >= sysm.num_packs  # >= one step per level
+    x = np.asarray(lower_solve(lay))
     x_ref = lower_solve_reference(sysm, b)
     assert int(np.sum(np.abs(x - x_ref) > 0.01)) == 0
     rel = np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref)
@@ -164,9 +162,9 @@ def test_scattered_dependencies_use_binned_path():
 @pytest.mark.slow
 def test_scattered_dependencies_use_binned_path_full():
     """Full-size (32k-feeder-class) variant of the scattered-solve test."""
-    from tpu_spmv.bench.matrices import random_banded
-    from tpu_spmv.sts.host import build_sts, compute_b
-    from tpu_spmv.sts.solve import (
+    from hspmv.bench.matrices import random_banded
+    from hspmv.sts.host import build_sts, compute_b
+    from hspmv.sts.solve import (
         LowerSolveLayout, lower_solve, lower_solve_reference,
     )
 
@@ -174,10 +172,65 @@ def test_scattered_dependencies_use_binned_path_full():
     sysm = build_sts(smat, order_type="LS")
     b = compute_b(sysm.lower)
     lay = LowerSolveLayout.build(sysm, b)
-    assert lay.ranked is not None
-    x = np.asarray(lower_solve(lay, interpret=True))
+    assert lay.sched.num_steps >= sysm.num_packs
+    x = np.asarray(lower_solve(lay))
     x_ref = lower_solve_reference(sysm, b)
     assert int(np.sum(np.abs(x - x_ref) > 0.01)) == 0
+
+
+@pytest.mark.parametrize("order_type", ["LS", "COLOR"])
+@pytest.mark.parametrize("step_scale", [1, 4])
+def test_level_solve_split_packs(order_type, step_scale):
+    """Packs larger than a step split across several steps (forced
+    small T); the level-scheduled solve must still match the serial
+    oracle."""
+    from hspmv.bench.matrices import random_banded
+    from hspmv.sts.solve import (
+        LevelSchedule, chunk_packs, lower_solve_blocks, pack_padding,
+    )
+
+    mat = random_banded(3000, 60, 8, seed=4)
+    sysm = build_sts(mat, order_type=order_type)
+    b = compute_b(sysm.lower)
+    lay = LowerSolveLayout.build(sysm, b)
+    sc = np.asarray(lay.slabs.sub_chunk)
+    qmax = int(np.bincount(sc[sc < lay.slabs.num_chunks]).max())
+    _, pad_start = pack_padding(sysm)
+    sched = LevelSchedule.build(
+        sc, chunk_packs(pad_start, lay.slabs.num_chunks), T=qmax * step_scale
+    )
+    assert sched.num_steps >= sysm.num_packs
+    x = np.asarray(
+        lower_solve_blocks(lay.slabs, sched, lay.b_scale)
+    ).reshape(-1)[np.asarray(lay.pad_index)]
+    x_ref = lower_solve_reference(sysm, b)
+    assert np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref) < 1e-6
+
+
+def test_choose_step_trades_steps_for_masked_work():
+    from hspmv.sts.solve import STEP_COST_SUBTILES, choose_step
+
+    # Many tiny packs: the smallest admissible step.
+    assert choose_step(np.ones(500, np.int64), 1) == 1
+    # One huge pack: a step as large as the pack beats many steps.
+    assert choose_step(np.array([4096]), 1) == 4096
+    # Never below the largest chunk, always a power of two.
+    T = choose_step(np.array([3, 5, 700]), 3)
+    assert T >= 3 and T & (T - 1) == 0
+    assert STEP_COST_SUBTILES > 0
+
+
+def test_stacked_schedules_pad_with_noop_steps():
+    from hspmv.sts.solve import LevelSchedule, stack_schedules
+
+    a = LevelSchedule.build(np.array([0, 0, 1, 2, 3]), np.array([0, 0, 1, 1]), T=4)
+    b = LevelSchedule.build(np.array([0, 1, 4]), np.array([0, 1, 2, 3]), T=4)
+    st = stack_schedules([a, b], num_subtiles=6, num_chunks=4)
+    assert st.step_s0.shape == (2, max(a.num_steps, b.num_steps))
+    assert st.sub_step.shape == (2, 6)
+    short = int(np.argmin([a.num_steps, b.num_steps]))
+    pad = np.asarray(st.step_nc)[short][min(a.num_steps, b.num_steps):]
+    assert (pad == 0).all()  # no-op steps finalize no chunk
 
 
 def test_upper_solve_scipy_parity():
@@ -194,10 +247,10 @@ def test_upper_solve_scipy_parity():
     import scipy.sparse as sp
     from scipy.sparse.linalg import spsolve_triangular
 
-    from tpu_spmv.bench.matrices import random_banded
-    from tpu_spmv.formats.csr import CSRMatrix
-    from tpu_spmv.sts.host import build_sts, reversed_for_upper
-    from tpu_spmv.sts.solve import LowerSolveLayout, lower_solve
+    from hspmv.bench.matrices import random_banded
+    from hspmv.formats.csr import CSRMatrix
+    from hspmv.sts.host import build_sts, reversed_for_upper
+    from hspmv.sts.solve import LowerSolveLayout, lower_solve
 
     full = random_banded(700, 40, 8, seed=11)
     U = sp.triu(full.to_scipy(), format="csr")
@@ -213,7 +266,7 @@ def test_upper_solve_scipy_parity():
     sys_ = build_sts(mat_r, order_type="LS", sort_packs=False)
     assert sys_.lower.nnz == mat.nnz  # no entries flipped
     layout = LowerSolveLayout.build(sys_, b[rev][sys_.perm])
-    x_sys = np.asarray(lower_solve(layout, interpret=True))
+    x_sys = np.asarray(lower_solve(layout))
     x_r = np.zeros(mat.m, np.float32)
     x_r[sys_.perm] = x_sys
     x = x_r[rev]
@@ -222,7 +275,7 @@ def test_upper_solve_scipy_parity():
 
 
 def test_upper_solve_cli(capsys):
-    from tpu_spmv.tools import sts as sts_cli
+    from hspmv.tools import sts as sts_cli
 
     rc = sts_cli.main([
         "synthetic:banded_1k", "--part", "upper", "--validate-only",
@@ -239,7 +292,7 @@ def test_upper_solve_cli_distributed(capsys):
     import jax
     import pytest
 
-    from tpu_spmv.tools import sts as sts_cli
+    from hspmv.tools import sts as sts_cli
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 devices")

@@ -4,11 +4,11 @@ import pathlib
 import numpy as np
 import pytest
 
-from tpu_spmv.bench.matrices import random_banded
-from tpu_spmv.io.csr_text import read_csr3_text, read_csr_text
-from tpu_spmv.io.matrix_market import write_mtx
-from tpu_spmv.tools import convert, reformat, stats
-from tpu_spmv.tune.model import reference_gpu_params, tpu_plan
+from hspmv.bench.matrices import random_banded
+from hspmv.io.csr_text import read_csr3_text, read_csr_text
+from hspmv.io.matrix_market import write_mtx
+from hspmv.tools import convert, reformat, stats
+from hspmv.tune.model import reference_gpu_params, plan_layout
 
 
 @pytest.fixture
@@ -29,7 +29,7 @@ def test_convert_cli(mtx, tmp_path):
     norm = read_csr_text(tmp_path / "norm" / "t.mtx.csr")
     assert norm.nnz == scr.nnz
     rcmd = read_csr_text(tmp_path / "rcm" / "t.mtx.rcm.csr")
-    from tpu_spmv.reorder import bandwidth
+    from hspmv.reorder import bandwidth
 
     assert bandwidth(rcmd.indptr, rcmd.indices) < bandwidth(norm.indptr, norm.indices)
 
@@ -78,29 +78,26 @@ def test_reference_gpu_params_formulas():
     assert legacy["srs"] >= 1
 
 
-def test_tpu_plan_kernels():
+def test_plan_layout_kernels():
     banded = random_banded(2000, 40, 8, seed=1)
-    plan = tpu_plan(banded, assume_rcm=True)
-    # Narrow-band: any of the slab kernels is the right family (r5: the
-    # sell candidate pays the shared per-sub-tile fixed cost it really
-    # has on chip, so packed's lower fill usually wins the model).
+    plan = plan_layout(banded, assume_rcm=True)
+    # Narrow-band: one of the slab layouts, by device bytes.
     assert plan.kernel in ("sell", "ranked", "packed"), (
         plan.kernel, plan.reason
     )
-    from tpu_spmv.bench.matrices import random_general
+    from hspmv.bench.matrices import random_general
 
-    # Scattered columns over a 50k-wide space: p95 chunk span ~380 blocks,
-    # far past the plain gather loop -> column-binned rank windows
-    # (quantized ranked or r5's packed-binned — same window family).
+    # Scattered columns over a 50k-wide space: slot spans past the
+    # 8-bit window deltas leave absolute columns or binned windows.
     scattered = random_general(50_000, 8, seed=2)
-    plan2 = tpu_plan(scattered, assume_rcm=True)
-    assert plan2.kernel in ("ranked", "packed") and plan2.bin_blocks > 0, (
+    plan2 = plan_layout(scattered, assume_rcm=True)
+    assert plan2.kernel == "sell" or plan2.bin_blocks > 0, (
         plan2.kernel, plan2.bin_blocks, plan2.reason
     )
 
 
 def test_analyze_cli(mtx, tmp_path, capsys):
-    from tpu_spmv.tools import analyze, convert
+    from hspmv.tools import analyze, convert
 
     p, _ = mtx
     convert.main(
@@ -114,7 +111,7 @@ def test_analyze_cli(mtx, tmp_path, capsys):
 
 
 def test_sts_cli(mtx, tmp_path, capsys):
-    from tpu_spmv.tools import convert, sts
+    from hspmv.tools import convert, sts
 
     p, _ = mtx
     convert.main(
@@ -132,7 +129,7 @@ def test_sts_cli(mtx, tmp_path, capsys):
 def test_multihost_mesh_simulated():
     import jax
 
-    from tpu_spmv.dist.multihost import initialize, make_hybrid_mesh, row_spec
+    from hspmv.dist.multihost import initialize, make_hybrid_mesh, row_spec
 
     assert initialize() is False  # single-process
     mesh = make_hybrid_mesh()
@@ -143,10 +140,10 @@ def test_multihost_mesh_simulated():
 
 
 def test_spmv_cli_validate_only(mtx, tmp_path, capsys):
-    from tpu_spmv.tools import spmv
+    from hspmv.tools import spmv
 
     p, _ = mtx
-    from tpu_spmv.tools import convert
+    from hspmv.tools import convert
 
     convert.main(
         [str(p), "--norm-dir", str(tmp_path / "norm"), "--rcm-dir", str(tmp_path / "rcm")]
@@ -164,20 +161,18 @@ def test_spmv_cli_validate_only(mtx, tmp_path, capsys):
         str(tmp_path / "rcm" / "t.mtx.rcm.csr"), "5", "--kernel", "sell",
         "--rcm", "never", "--validate-only", "--layout-cache", str(cache),
     ])
-    # sell runs the Pallas kernel: on the CPU test backend that compiles
-    # through the interpreter only when asked; accept validation result.
     out = capsys.readouterr().out
     assert cache.exists()
 
 
 def test_scaling_report():
-    from tpu_spmv.bench.matrices import random_banded, random_general
-    from tpu_spmv.tools.scaling import report
+    from hspmv.bench.matrices import random_banded, random_general
+    from hspmv.tools.scaling import report
 
     banded = random_banded(100_000, 500, 12, seed=0)
     r = report(banded, 8)
     assert r["halo_applicable"]
-    assert r["ici_bytes_per_dev_halo"] < r["ici_bytes_per_dev_allgather"]
+    assert r["link_bytes_per_dev_halo"] < r["link_bytes_per_dev_allgather"]
 
     scattered = random_general(100_000, 8, seed=1)
     r2 = report(scattered, 8)
@@ -191,8 +186,8 @@ def test_fixture_mtx_end_to_end(tmp_path, capsys):
     """Committed SuiteSparse-form fixture through the full pipeline:
     symmetric-expansion read -> convert (norm/+rcm/) -> spmv validate
     (the reference's converter.m -> run_*.py path on a real file)."""
-    from tpu_spmv.io import read_mtx
-    from tpu_spmv.tools import convert, spmv
+    from hspmv.io import read_mtx
+    from hspmv.tools import convert, spmv
 
     mat = read_mtx(FIXTURE)
     assert mat.shape == (496, 496)
@@ -214,7 +209,7 @@ def test_fixture_mtx_end_to_end(tmp_path, capsys):
 def test_sweep_accepts_file_inputs(tmp_path, capsys):
     """Reference runners sweep directories of matrix files
     (run_epyc.py:85-100); ours accepts paths/globs too."""
-    from tpu_spmv.tools import sweep
+    from hspmv.tools import sweep
 
     out = tmp_path / "s.csv"
     rc = sweep.main([
@@ -234,13 +229,15 @@ def test_weak_scaling_harness():
     """Halo traffic per device is O(band), constant as D grows; the
     sharded flagship executes and validates at each D on the virtual
     mesh (BASELINE.md >=70% weak-scaling target's schedule check)."""
-    from tpu_spmv.tools.scaling import weak_scaling
+    from hspmv.hw import spec_for_kind
+    from hspmv.tools.scaling import weak_scaling
 
-    # 2048 rows/device: the smallest step where the DCN-priced host
-    # boundary (hosts=2 engages at D=4) still amortizes past the 70%
-    # target — 1024 rows/device is communication-dominated by design.
-    rows = weak_scaling([1, 2, 4], base_rows=2048, band=48)
-    halo_bytes = [r["ici_bytes_per_dev"] for r in rows if r["devices"] > 1]
+    # The model prices shards at the H100 row's HBM and link rates.
+    rows = weak_scaling(
+        [1, 2, 4], base_rows=2048, band=48,
+        spec=spec_for_kind("NVIDIA H100 80GB HBM3"),
+    )
+    halo_bytes = [r["link_bytes_per_dev"] for r in rows if r["devices"] > 1]
     assert len(set(halo_bytes)) == 1  # constant per device, not O(n)
     n_top = rows[-1]["rows"]
     assert halo_bytes[0] < 4 * n_top / 4  # far below the all-gather bound
@@ -254,10 +251,10 @@ def test_weak_scaling_harness():
 
 
 def test_spmm_cli_validate_only(capsys):
-    """SpMM CLI: resident and windowed kernels both validate through the
+    """SpMM CLI: the ranked and packed layouts both validate through the
     driver protocol (net-new serving-shaped workload; SURVEY §2.2 has
     no reference analog)."""
-    from tpu_spmv.tools import spmm
+    from hspmv.tools import spmm
 
     rc = spmm.main([
         "synthetic:banded_1k", "4", "--batch", "3", "--rcm", "always",
@@ -267,7 +264,13 @@ def test_spmm_cli_validate_only(capsys):
     assert "Number Wrong: 0" in capsys.readouterr().out
     rc = spmm.main([
         "synthetic:banded_1k", "4", "--batch", "3", "--rcm", "always",
-        "--kernel", "windowed", "--validate-only",
+        "--kernel", "packed", "--validate-only",
+    ])
+    assert rc == 0
+    assert "Number Wrong: 0" in capsys.readouterr().out
+    rc = spmm.main([
+        "synthetic:banded_1k", "4", "--batch", "3", "--rcm", "always",
+        "--kernel", "ranked", "--validate-only",
     ])
     assert rc == 0
     assert "Number Wrong: 0" in capsys.readouterr().out
@@ -276,7 +279,7 @@ def test_spmm_cli_validate_only(capsys):
 def test_solve_cli_cg_and_pcg(capsys):
     """CG/PCG solver CLI over the sharded SpMV (net-new: the reference
     never consumes SpMV outside its benchmark loop)."""
-    from tpu_spmv.tools import solve
+    from hspmv.tools import solve
 
     assert solve.main(["synthetic:banded_1k", "--iters", "80"]) == 0
     assert "rms_residual" in capsys.readouterr().out
@@ -287,7 +290,7 @@ def test_solve_cli_cg_and_pcg(capsys):
 
 def test_sts_cli_distributed(capsys):
     """STS CLI --devices routes to the sharded block back-substitution."""
-    from tpu_spmv.tools import sts
+    from hspmv.tools import sts
 
     rc = sts.main(["synthetic:banded_1k", "--devices", "4"])
     assert rc == 0
@@ -301,7 +304,7 @@ def test_spmm_cli_distributed(capsys):
     import jax
     import pytest
 
-    from tpu_spmv.tools import spmm
+    from hspmv.tools import spmm
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 devices")
@@ -323,7 +326,7 @@ def test_sweep_rcm_tristate(tmp_path, capsys):
     """--rcm auto defers the reorder decision to the planner: a stencil
     matrix stays in natural order (so the auto kernel can dispatch the
     index-free DIA layout), while bare --rcm still means always."""
-    from tpu_spmv.tools import sweep
+    from hspmv.tools import sweep
 
     out = tmp_path / "s.csv"
     rc = sweep.main([
@@ -344,9 +347,9 @@ def test_sweep_packed_fallback_labels_row(tmp_path):
 
     import numpy as np
 
-    from tpu_spmv.formats.csr import CSRMatrix
-    from tpu_spmv.io import write_mtx
-    from tpu_spmv.tools import sweep
+    from hspmv.formats.csr import CSRMatrix
+    from hspmv.io import write_mtx
+    from hspmv.tools import sweep
 
     # Small but WIDE scattered matrix: 384 rows x 50k columns, 4
     # entries/row — sub-tile block spans far exceed the packed-delta
