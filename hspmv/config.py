@@ -40,7 +40,6 @@ class RunConfig:
     sup_row_sizes: tuple = ()
     # Execution knobs (no reference analog; replaces OMP_* env).
     kernel: str = "auto"  # "auto" | "sell" | "ranked" | "packed" | "dia" | ...
-    tile_k: int = 512
     num_runs: int = 20
 
     @classmethod
@@ -84,8 +83,6 @@ class RunConfig:
         env = os.environ
         if "HSPMV_KERNEL" in env:
             cfg.kernel = env["HSPMV_KERNEL"]
-        if "HSPMV_TILE_K" in env:
-            cfg.tile_k = int(env["HSPMV_TILE_K"])
         if "HSPMV_NUM_RUNS" in env:
             cfg.num_runs = int(env["HSPMV_NUM_RUNS"])
         if "HSPMV_K" in env:

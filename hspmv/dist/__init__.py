@@ -1,6 +1,6 @@
 from hspmv.dist.sharding import (  # noqa: F401
     OverlapRanked, ShardedRanked, ShardedSell, make_row_mesh,
-    spmm_overlap, spmm_sharded, spmv_overlap, spmv_sharded,
+    spmv_overlap, spmv_sharded,
 )
 from hspmv.dist.solvers import cg_solve, pcg_solve  # noqa: F401
 

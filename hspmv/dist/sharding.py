@@ -233,7 +233,7 @@ class ShardedSell:
         blocks, halo_rows, rows_per_shard = _slice_shard_blocks(
             mat, n_devices, halo
         )
-        shards = [SellSlabs.from_csr(block) for block in blocks]
+        shards = [SellSlabs.from_csr(block, on_host=True) for block in blocks]
 
         # Pad all shards to identical shapes.
         total_k = max(int(s.vals.shape[0]) for s in shards)
@@ -314,7 +314,6 @@ class ShardedRanked:
     n_devices: int
     halo: int = 0
     chunk_q: int = 0
-    tile_k: int = 512
     # Shared grouped windows (one static group partition across ALL
     # shards — see build); grp_b0 is (D, S*G) sub-tile-major like the
     # single-chip layout, group_code == 0 disables grouping.
@@ -335,15 +334,14 @@ class ShardedRanked:
         aux = (
             self.m, self.n, self.nnz, self.rows_per_shard,
             self.num_chunks_local, self.rank_nb, self.n_devices, self.halo,
-            self.chunk_q, self.tile_k, self.group_code,
-            self.local_n,
+            self.chunk_q, self.group_code, self.local_n,
         )
         return children, aux
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        return cls(*children[:6], *aux[:10], grp_b0=children[6],
-                   group_code=aux[10], local_n=aux[11])
+        return cls(*children[:6], *aux[:9], grp_b0=children[6],
+                   group_code=aux[9], local_n=aux[10])
 
     def _local_layout_struct(
         self, vals, lcols, sub_b0, sub_dlo, sub_dhi, sub_chunk, grp_b0,
@@ -364,7 +362,6 @@ class ShardedRanked:
             num_chunks=self.num_chunks_local,
             rank_nb=self.rank_nb,
             chunk_q=self.chunk_q,
-            tile_k=self.tile_k,
             grp_b0=grp_b0,
             group_code=self.group_code,
         )
@@ -401,7 +398,7 @@ class ShardedRanked:
         shards = [
             RankedSlabs.from_csr(
                 blocks[0], bin_blocks=bin_blocks,
-                allow_groups=allow_groups, val_dtype=val_dtype,
+                allow_groups=allow_groups, val_dtype=val_dtype, on_host=True,
             )
         ]
         plan = shards[0].group_members if shards[0].group_code else None
@@ -418,13 +415,14 @@ class ShardedRanked:
                         block, bin_blocks=bin_blocks,
                         allow_groups=False, group_plan=plan,
                         group_plan_budget=budget, val_dtype=val_dtype,
+                        on_host=True,
                     )
                 )
         except ValueError:
             shards = [
                 RankedSlabs.from_csr(
                     block, bin_blocks=bin_blocks, allow_groups=False,
-                    val_dtype=val_dtype,
+                    val_dtype=val_dtype, on_host=True,
                 )
                 for block in blocks
             ]
@@ -433,7 +431,6 @@ class ShardedRanked:
         S = max(s.num_subtiles for s in shards)
         num_chunks_local = rows_per_shard // LANES
         rank_nb = max(s.rank_nb for s in shards)
-        tile_k = min(s.tile_k for s in shards)
         # Widest shard dtype wins (shards narrow independently: uint8 at
         # rank<=2, int16 below 2^15 — formats/sell.py).
         dts = [np.asarray(s.lcols).dtype for s in shards]
@@ -492,7 +489,6 @@ class ShardedRanked:
                 )
                 else 0
             ),
-            tile_k=tile_k,
             grp_b0=np.asarray(grp_b0),
             group_code=group_code,
             local_n=local_n,
@@ -651,11 +647,21 @@ class OverlapRanked:
         return cls(main=main, edge=edge)
 
 
-def _run_overlap(layout, x, mesh, axis, kernel_fn):
-    """Shared shard_map runner for the overlapped SpMV/SpMM: issue the
-    halo ppermutes first (nothing in the main kernel depends on them,
-    so the scheduler keeps them in flight), run the interior stack on
-    x_shard, then add the edge stack over the exchanged 2*halo rows."""
+def spmv_overlap(
+    layout: OverlapRanked,
+    x: jax.Array,
+    mesh: Mesh,
+    axis="rows",
+):
+    """y = A @ x with the halo exchange overlapped behind the main
+    kernel (see OverlapRanked). Same calling convention as
+    spmv_sharded: x (padded_m[, B]) row-sharded P(axis), axis may be a
+    tuple for the multi-host hybrid mesh.
+
+    Each shard issues the halo ppermutes first (nothing in the main
+    kernel depends on them, so the scheduler keeps them in flight), runs
+    the interior stack on x_shard, then adds the edge stack over the
+    exchanged 2*halo rows."""
     D = layout.n_devices
     D_mesh = mesh_axis_size(mesh, axis)
     if D_mesh != D:
@@ -677,11 +683,13 @@ def _run_overlap(layout, x, mesh, axis, kernel_fn):
         main_local = main._local_layout_struct(
             mv[0], ml[0], mb0[0], mdlo[0], mdhi[0], mchunk[0], mgrp[0],
         )
-        y = kernel_fn(main_local, x_shard)
+        y = spmv_ranked(main_local, x_shard)
         edge_local = edge._local_layout_struct(
             ev[0], el[0], eb0[0], edlo[0], edhi[0], echunk[0], egrp[0],
         )
-        y = y + kernel_fn(edge_local, jnp.concatenate([from_left, from_right]))
+        y = y + spmv_ranked(
+            edge_local, jnp.concatenate([from_left, from_right])
+        )
         return y[None]
 
     operands = (
@@ -698,20 +706,7 @@ def _run_overlap(layout, x, mesh, axis, kernel_fn):
         out_specs=P(axis),
         check_vma=False,
     )
-    return fn(*operands)
-
-
-def spmv_overlap(
-    layout: OverlapRanked,
-    x: jax.Array,
-    mesh: Mesh,
-    axis="rows",
-):
-    """y = A @ x with the halo exchange overlapped behind the main
-    kernel (see OverlapRanked). Same calling convention as
-    spmv_sharded: x (padded_m,) row-sharded P(axis), axis may be a
-    tuple for the multi-host hybrid mesh."""
-    return _run_overlap(layout, x, mesh, axis, spmv_ranked).reshape(-1)
+    return fn(*operands).reshape(-1, *x.shape[1:])
 
 
 def _exchange_x(layout, x_shard, axis):
@@ -746,7 +741,9 @@ def spmv_sharded(
 
     layout: ShardedSell or ShardedRanked (the flagship).
     x: (padded_m,) float32 sharded P(axis) (square matrices: padded with
-    zeros beyond n). Returns y (padded_m,) sharded P(axis).
+    zeros beyond n). Returns y (padded_m,) sharded P(axis). An x of
+    shape (padded_m, B) gives the SpMM Y (padded_m, B): the halo
+    exchange then moves (H, B) edge blocks over the same pairs.
     axis: mesh axis name, or a TUPLE of names for the multi-process
     mesh (rows sharded over the flattened ("hosts", "rows")). The layout
     must have been built with n_devices == the product of the named
@@ -795,73 +792,4 @@ def spmv_sharded(
         out_specs=P(axis),
         check_vma=False,
     )
-    return fn(*operands).reshape(-1)
-
-
-def spmm_sharded(
-    layout: ShardedRanked,
-    X: jax.Array,
-    mesh: Mesh,
-    axis="rows",
-):
-    """Y = A @ X with rows sharded over `axis` (multi-vector SpMV — the
-    serving-shaped workload, kernels/spmm.py, distributed).
-
-    X: (padded_m, B) float32 row-sharded P(axis) — same residency as the
-    SpMV x, B extra columns. The halo exchange moves (H, B) edge blocks
-    over the same neighbor `ppermute` pairs as spmv_sharded (all-gather
-    fallback included): `_exchange_x` is shape-agnostic in the leading
-    axis. Each shard then runs the single-card SpMM on its (local_n, B)
-    window. Returns Y (padded_m, B) sharded P(axis).
-
-    Net-new vs the reference (SURVEY.md section 2.5: nothing crosses a
-    process boundary there); axis may be a tuple as in spmv_sharded.
-    """
-    from hspmv.kernels.spmm import spmm_ranked
-
-    if not isinstance(layout, ShardedRanked):
-        raise TypeError("spmm_sharded expects the ShardedRanked flagship")
-    D_mesh = mesh_axis_size(mesh, axis)
-    if D_mesh != layout.n_devices:
-        raise ValueError(
-            f"layout was built for {layout.n_devices} shards but axis "
-            f"{axis!r} spans {D_mesh} devices"
-        )
-    B = int(X.shape[-1])
-
-    def local(vals, lcols, sub_b0, sub_dlo, sub_dhi, sub_chunk,
-              grp_b0, x_shard):
-        x_in = _exchange_x(layout, x_shard, axis)
-        local_layout = layout._local_layout_struct(
-            vals[0], lcols[0], sub_b0[0], sub_dlo[0], sub_dhi[0],
-            sub_chunk[0], grp_b0[0],
-        )
-        return spmm_ranked(local_layout, x_in)[None]
-
-    fn = jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(P(axis),) * 8,
-        out_specs=P(axis),
-        check_vma=False,
-    )
-    return fn(
-        layout.vals, layout.lcols, layout.sub_b0, layout.sub_dlo,
-        layout.sub_dhi, layout.sub_chunk, layout.grp_b0, X,
-    ).reshape(-1, B)
-
-
-def spmm_overlap(
-    layout: OverlapRanked,
-    X: jax.Array,
-    mesh: Mesh,
-    axis="rows",
-):
-    """Y = A @ X with the (H, B) halo blocks overlapped behind the main
-    spmm kernel — the SpMM counterpart of spmv_overlap (B columns make
-    the main kernel longer while the wire moves the same halo rows x B,
-    so the overlap window is even more favorable than SpMV's)."""
-    from hspmv.kernels.spmm import spmm_ranked
-
-    B = int(X.shape[-1])
-    return _run_overlap(layout, X, mesh, axis, spmm_ranked).reshape(-1, B)
+    return fn(*operands).reshape(-1, *x.shape[1:])

@@ -194,10 +194,10 @@ class ShardedLowerSolve:
 
             d_shards.append(SellSlabs.from_csr(block(
                 rd[in_diag], cd[in_diag] - r0, vd[in_diag], rows_per_shard
-            )))
+            ), on_host=True))
             o_shards.append(SellSlabs.from_csr(block(
                 rd[~in_diag], cd[~in_diag], vd[~in_diag], padded_m
-            )))
+            ), on_host=True))
 
         (dv, dc, db0, dnb, dch), d_max_nb = _stack_sell(
             d_shards, num_chunks_local
@@ -217,7 +217,7 @@ class ShardedLowerSolve:
             ).max(initial=1)) for s in d_shards),
         )
         dsched = stack_schedules(
-            [LevelSchedule.build(s.sub_chunk, cp, T)
+            [LevelSchedule.build(s.sub_chunk, cp, T, on_host=True)
              for s, cp in zip(d_shards, packs)],
             dv.shape[1] // SUBLANES, num_chunks_local,
         )

@@ -23,7 +23,6 @@ from __future__ import annotations
 import dataclasses
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
 from hspmv.formats.csr import CSRMatrix
@@ -33,8 +32,8 @@ from hspmv.formats.sell import (
     _aligned_slots,
     _binned_slots,
     _round_up,
+    _to_device,
     group_windows,
-    pad_up_tile,
 )
 
 # Minimum slab height: bounds chunk ends per 8-slot sub-tile to two
@@ -67,7 +66,6 @@ class PackedRanked:
     nnz: int
     num_chunks: int
     rank_nb: int
-    tile_k: int
     # Grouped absolute window bases (see sell.group_windows); the
     # grouped kernel replaces the 8-load packed-delta unpack with G
     # scalar reads + G loads. group_code == 0 disables grouping.
@@ -81,14 +79,14 @@ class PackedRanked:
         )
         aux = (
             self.m, self.n, self.nnz, self.num_chunks, self.rank_nb,
-            self.tile_k, self.group_code,
+            self.group_code,
         )
         return children, aux
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        return cls(*children[:7], *aux[:6], grp_b0=children[7],
-                   group_code=aux[6])
+        return cls(*children[:7], *aux[:5], grp_b0=children[7],
+                   group_code=aux[5])
 
     def save(self, path, matrix=None, config: tuple = ()) -> None:
         from hspmv.formats.sell import _save_layout
@@ -123,7 +121,7 @@ class PackedRanked:
 
     @classmethod
     def from_csr(
-        cls, mat: CSRMatrix, tile_k: int = 2048, allow_groups: bool = True,
+        cls, mat: CSRMatrix, allow_groups: bool = True,
         val_dtype=None, bin_blocks: int = 0,
     ) -> "PackedRanked":
         """val_dtype: slab value storage dtype (default float32);
@@ -158,11 +156,7 @@ class PackedRanked:
         kc = np.maximum(kc_raw, MIN_KC)
         koff = np.zeros(num_chunks + 1, dtype=np.int64)
         np.cumsum(kc, out=koff[1:])
-        # 512-sublane quantum here; pad_up_tile below (once
-        # rank_nb/group_code are known) pads total_k UP to the largest
-        # unroll-safe grid tile — the same grid-step fixed-cost
-        # amortization as RankedSlabs.from_csr.
-        total_k = _round_up(int(koff[-1]), 512)
+        total_k = _round_up(int(koff[-1]), SUBLANES)
 
         # int32 throughout: at high-fill irregular structure the padded
         # (total_k, 128) temporaries dominate build memory, and int64
@@ -253,9 +247,9 @@ class PackedRanked:
         np.add.at(E, s_of, 1)
         if int(E.max(initial=0)) > 2:
             # kc >= MIN_KC bounds chunk ends to two per 8-slot sub-tile;
-            # a third end would fold a chunk total into the carry
-            # SILENTLY — raise, never assert (review r5: -O strips
-            # asserts and this guards data corruption, not debugging).
+            # bmeta has room for two, and a third would put a chunk's
+            # slots into its neighbour's sum SILENTLY — raise, never
+            # assert (-O strips asserts; this guards the result).
             raise ValueError(
                 ">2 chunk ends in one sub-tile (MIN_KC violated)"
             )
@@ -265,59 +259,19 @@ class PackedRanked:
         b2[s_of[rank_in == 1]] = bpos[rank_in == 1]
         bmeta = (b1 | (b2 << 4) | (E << 8)).astype(np.int32)
 
-        # Grid tile: pad total_k UP to the largest unroll-safe tile
-        # (pad_up_tile). Pad sub-tiles are inert: vals=0 (prod=0),
-        # lcols=0, bmeta=0 (E=0 -> nothing emitted; the carry only
-        # accumulates zeros past the last real chunk end, which lands
-        # at koff[-1] <= the unpadded total_k). Window bases replicate
-        # the last real sub-tile so gather loads stay in-bounds.
-        tile_eff = pad_up_tile(total_k, tile_k)
-        pad_k = -total_k % tile_eff
-        if pad_k:
-            pad_s = pad_k // SUBLANES
-            vals = np.concatenate(
-                [vals, np.zeros((pad_k, LANES), vals.dtype)]
-            )
-            lcols = np.concatenate(
-                [lcols, np.zeros((pad_k, LANES), lcols.dtype)]
-            )
-            sub_b0 = np.concatenate(
-                [sub_b0, np.full(pad_s, sub_b0[-1], sub_b0.dtype)]
-            )
-            sub_dlo = np.concatenate(
-                [sub_dlo, np.zeros(pad_s, sub_dlo.dtype)]
-            )
-            sub_dhi = np.concatenate(
-                [sub_dhi, np.zeros(pad_s, sub_dhi.dtype)]
-            )
-            bmeta = np.concatenate(
-                [bmeta, np.zeros(pad_s, bmeta.dtype)]
-            )
-            if group_code:
-                G_eff = group_code >> 32
-                grp_b0 = np.concatenate(
-                    [grp_b0, np.zeros(pad_s * G_eff, grp_b0.dtype)]
-                )
-            total_k += pad_k
-
-        as32 = lambda a: jnp.asarray(
-            a.view(np.int32) if a.dtype == np.uint32 else a,
-            dtype=jnp.int32,
-        )
-        return cls(
-            vals=jnp.asarray(vals, dtype=val_dtype or jnp.float32),
-            lcols=jnp.asarray(lcols),
-            sub_b0=as32(sub_b0.astype(np.int32)),
-            sub_dlo=as32(sub_dlo),
-            sub_dhi=as32(sub_dhi),
-            bmeta=as32(bmeta),
-            out_row=as32(out_row.astype(np.int32)),
+        return _to_device(cls(
+            vals=vals.astype(val_dtype or np.float32, copy=False),
+            lcols=lcols,
+            sub_b0=sub_b0.astype(np.int32),
+            sub_dlo=sub_dlo.view(np.int32),
+            sub_dhi=sub_dhi.view(np.int32),
+            bmeta=bmeta,
+            out_row=out_row.astype(np.int32),
             m=m,
             n=n,
             nnz=mat.nnz,
             num_chunks=num_chunks,
             rank_nb=rank_nb,
-            tile_k=tile_eff,
-            grp_b0=jnp.asarray(grp_b0),
+            grp_b0=grp_b0,
             group_code=group_code,
-        )
+        ))

@@ -40,7 +40,8 @@ def _round_up(x: int, m: int) -> int:
 
 def _uniform_subtiles_per_chunk(sub_chunk, num_chunks: int) -> int:
     """q if every chunk owns exactly q sub-tiles (uniform slab heights;
-    the tile-k tail uses sentinel ids and is excluded), else 0. Uniform
+    padding sub-tiles carry the sentinel id num_chunks and are
+    excluded), else 0. Uniform
     layouts reduce partials with a reshape-sum instead of a segment-sum
     (and skip the reduction entirely at q=1)."""
     sc = np.asarray(sub_chunk)
@@ -205,35 +206,6 @@ def matrix_key(mat: CSRMatrix, config: tuple = ()) -> np.ndarray:
 
 
 
-def pick_tile_k(total_k: int, cap: int = 2048) -> int:
-    """Largest slab tile <= cap that divides total_k (which is padded to
-    512 slot rows, so small matrices do not pay 2048-row padding)."""
-    for t in (cap, 2048, 1024, 512):
-        if t <= cap and total_k % t == 0:
-            return t
-    # No standard tile divides (custom tile_k quanta): scan divisors
-    # down — a non-divisor would truncate the tile count.
-    for t in range(min(cap, total_k), SUBLANES - 1, -SUBLANES):
-        if total_k % t == 0:
-            return t
-    return SUBLANES
-
-
-def pad_up_tile(total_k: int, cap: int) -> int:
-    """Slab-row quantum for a rank-windowed layout, padding total_k UP.
-
-    Picks the largest tile (within the caller's cap) whose pad
-    (-total_k % tile) costs <= 6% extra slab traffic, falling back to
-    the largest divisor tile (pick_tile_k). Shared by RankedSlabs and
-    PackedRanked; callers append -total_k % tile inert pad rows."""
-    for cand in (8192, 4096, 2048, 1024):
-        if cand > cap:
-            continue
-        if -total_k % cand <= 0.06 * total_k:
-            return cand
-    return pick_tile_k(total_k, cap)
-
-
 def _binned_slots(mat: CSRMatrix, bin_blocks: int):
     """Column-binned slot assignment: the scattered-matrix layout.
 
@@ -364,6 +336,11 @@ def _binned_slots(mat: CSRMatrix, bin_blocks: int):
     return slots, kc
 
 
+def _to_device(layout):
+    """A layout with every host array committed to the default device."""
+    return jax.tree_util.tree_map(jnp.asarray, layout)
+
+
 def _save_layout(layout, path, matrix: CSRMatrix | None = None,
                  config: tuple = ()) -> None:
     """Persist a layout's device arrays + static config to .npz.
@@ -470,8 +447,7 @@ def group_windows(sub_base, hi_units, rank_nb0: int, group_plan=None,
         for r in mem:
             gb[:, r] = gmin
             group_code |= gi << (4 * r)
-    # Sub-tile-major (S, G) so the kernel's tile-blocked SMEM slice is
-    # contiguous (subs_per_tile * G words per tile).
+    # Sub-tile-major (S, G): row s holds sub-tile s's G group bases.
     return gb, gmat.T.reshape(-1).astype(np.int32), group_code
 
 
@@ -523,7 +499,7 @@ def load_layout(path, matrix: CSRMatrix | None = None, config: tuple = ()):
             f"layout cache {path} holds a {clsname}, which this loader "
             "does not support; rebuild it"
         )
-    if clsname == "RankedSlabs" and len(children) != 7:
+    if len(children) + len(aux) != len(dataclasses.fields(cls)):
         raise LayoutCacheMismatch(
             f"layout cache {path} was written by another version of the "
             "layout; rebuild it"
@@ -584,42 +560,28 @@ class SellSlabs:
         )
 
     @classmethod
-    def shape_stats(
-        cls, mat: CSRMatrix, tile_k: int = 2048, bin_blocks: int = 0,
-    ) -> tuple[int, int]:
-        """(num_subtiles, max_nb) of the layout from_csr would build.
-
-        Pure host/NumPy — safe inside the planner (tune/model.py), which
-        must never trigger JAX backend initialization just to cost a
-        candidate layout.
-        """
-        host = cls._host_build(mat, tile_k, False, bin_blocks)
-        sub_nb = host["sub_nb"]
-        return len(sub_nb), int(sub_nb.max()) if len(sub_nb) else 1
-
-    @classmethod
     def from_csr(
-        cls, mat: CSRMatrix, tile_k: int = 2048, align: bool = False,
-        bin_blocks: int = 0,
+        cls, mat: CSRMatrix, align: bool = False, bin_blocks: int = 0,
+        on_host: bool = False,
     ) -> "SellSlabs":
         """Build the layout from a (preferably RCM'd) CSR matrix.
 
-        tile_k: slab-row quantum; total_k is padded to min(tile_k, 512).
         align: cluster-aligned slot assignment (see _aligned_slots) —
         slightly more padding, much narrower per-sublane gather windows
         for stencil-like structures (used by RankedSlabs).
         bin_blocks > 0: column-binned slots (_binned_slots) for
         scattered matrices — overrides align.
+        on_host: keep the arrays in host memory (NumPy) — the sharded
+        layouts stack shards on the host and place each on its device.
         """
-        host = cls._host_build(mat, tile_k, align, bin_blocks)
-        as32 = lambda a: jnp.asarray(a, dtype=jnp.int32)
+        host = cls._host_build(mat, align, bin_blocks)
         sub_nb = host["sub_nb"]
-        return cls(
-            vals=jnp.asarray(host["vals"]),
-            cols=as32(host["cols"]),
-            sub_b0=as32(host["sub_b0"]),
-            sub_nb=as32(sub_nb),
-            sub_chunk=as32(host["sub_chunk"]),
+        layout = cls(
+            vals=host["vals"],
+            cols=host["cols"],
+            sub_b0=host["sub_b0"].astype(np.int32),
+            sub_nb=sub_nb.astype(np.int32),
+            sub_chunk=host["sub_chunk"].astype(np.int32),
             m=host["m"],
             n=host["n"],
             nnz=mat.nnz,
@@ -627,18 +589,11 @@ class SellSlabs:
             max_nb=int(sub_nb.max()) if len(sub_nb) else 1,
             chunk_q=host["chunk_q"],
         )
+        return layout if on_host else _to_device(layout)
 
     @staticmethod
-    def _host_build(
-        mat: CSRMatrix, tile_k: int, align: bool, bin_blocks: int,
-    ) -> dict:
+    def _host_build(mat: CSRMatrix, align: bool, bin_blocks: int) -> dict:
         """Host/NumPy half of from_csr (no JAX calls)."""
-        if tile_k % SUBLANES:
-            # A non-8-multiple tile breaks every S = total_k//SUBLANES
-            # consumer far from here (review r5): fail fast.
-            raise ValueError(
-                f"tile_k must be a multiple of {SUBLANES}, got {tile_k}"
-            )
         m, n = mat.shape
         num_chunks = max(_round_up(m, LANES) // LANES, 1)
 
@@ -662,7 +617,7 @@ class SellSlabs:
         )
         koff = np.zeros(num_chunks + 1, dtype=np.int64)
         np.cumsum(kc, out=koff[1:])
-        total_k = _round_up(int(koff[-1]), min(tile_k, 512))
+        total_k = int(koff[-1])
 
         vals = np.zeros((total_k, LANES), dtype=np.float32)
         # int32: column ids fit (n < 2^31) and the padded array is the
@@ -705,11 +660,8 @@ class SellSlabs:
         )
         np.copyto(cols, pad_fill, where=(cols == -1))
 
-        # Owning chunk per sub-tile (chunk id num_chunks for the all-pad
-        # tail, dropped by the segment-sum).
-        sub_chunk = np.full(num_subtiles, num_chunks, dtype=np.int64)
-        real = int(koff[-1]) // SUBLANES
-        sub_chunk[:real] = np.repeat(
+        # Owning chunk per sub-tile (sorted).
+        sub_chunk = np.repeat(
             np.arange(num_chunks, dtype=np.int64), kc // SUBLANES
         )
 
@@ -763,7 +715,6 @@ class RankedSlabs:
     num_chunks: int
     rank_nb: int
     chunk_q: int = 0  # uniform sub-tiles per chunk (0 = ragged)
-    tile_k: int = 2048
     # Grouped windows: sublanes whose windows coincide share ONE base,
     # stored ABSOLUTE in grp_b0 ((S*G,) int32, sub-tile-major) instead
     # of the packed deltas. group_code packs the static sublane->group
@@ -778,7 +729,7 @@ class RankedSlabs:
         )
         aux = (
             self.m, self.n, self.nnz, self.num_chunks, self.rank_nb,
-            self.chunk_q, self.tile_k, self.group_code,
+            self.chunk_q, self.group_code,
         )
         return children, aux
 
@@ -791,8 +742,8 @@ class RankedSlabs:
     def tree_unflatten(cls, aux, children):
         # grp_b0 is the last CHILD but a defaulted (hence trailing)
         # dataclass field; map explicitly rather than positionally.
-        return cls(*children[:6], *aux[:7], grp_b0=children[6],
-                   group_code=aux[7])
+        return cls(*children[:6], *aux[:6], grp_b0=children[6],
+                   group_code=aux[6])
 
     @property
     def num_subtiles(self) -> int:
@@ -832,11 +783,11 @@ class RankedSlabs:
 
     @classmethod
     def from_csr(
-        cls, mat: CSRMatrix, tile_k: int = 2048, align: bool = True,
+        cls, mat: CSRMatrix, align: bool = True,
         bin_blocks: int = 0, allow_groups: bool = True,
         group_plan: tuple | None = None,
         group_plan_budget: int | None = None,
-        val_dtype=None,
+        val_dtype=None, on_host: bool = False,
     ) -> "RankedSlabs":
         """val_dtype: slab value storage dtype (default float32).
         jnp.bfloat16 halves the dominant value traffic on this
@@ -856,8 +807,9 @@ class RankedSlabs:
         plan against — the PLANNING shard's paired-load budget, which may
         exceed this shard's own (the stacked kernel runs at the global
         rank_nb, so a tail shard with a locally narrower rank must not
-        reject the shared plan)."""
-        host = SellSlabs._host_build(mat, tile_k, align, bin_blocks)
+        reject the shared plan).
+        on_host: keep the arrays in host memory, as SellSlabs.from_csr."""
+        host = SellSlabs._host_build(mat, align, bin_blocks)
         cols = host["cols"]  # absolute, padding pre-filled in-window
         vals = host["vals"]
         dest_k = host.pop("dest_k")
@@ -896,12 +848,6 @@ class RankedSlabs:
             hi_units = flat_hi.reshape(S, SUBLANES)
             hi_units = np.where(hi_units < 0, sub_base, hi_units)
             rank_nb0 = int((hi_units - sub_base).max()) + 1
-            # (A rank>2 gate lived here briefly: multi-pair grouped
-            # kernels never finished compiling — but the culprit was the
-            # full-SMEM scalar-prefetch metadata, fixed by tile-blocked
-            # SMEM. Measured after the fix: W=8 grouped at 50k rows
-            # compiles in 5s and runs 15% faster than packed.)
-        if want_groups:
             sub_base, grp_b0, group_code = group_windows(
                 sub_base, hi_units, rank_nb0,
                 group_plan=group_plan, group_plan_budget=group_plan_budget,
@@ -948,57 +894,20 @@ class RankedSlabs:
         for r in range(4):
             sub_dlo |= deltas[:, r] << (8 * r)
             sub_dhi |= deltas[:, r + 4] << (8 * r)
-        # Slab quantum: pad total_k UP to the tile (pad_up_tile). The pad
-        # rows are inert (val=0, lcols=0, chunk=dump) and cost at most
-        # 6% extra slab bytes.
-        tile_eff = pad_up_tile(total_k, tile_k)
-        pad_k = -total_k % tile_eff
-        if pad_k:
-            pad_s = pad_k // SUBLANES
-            vals = np.concatenate(
-                [vals, np.zeros((pad_k, LANES), vals.dtype)]
-            )
-            lcols = np.concatenate(
-                [lcols, np.zeros((pad_k, LANES), lcols.dtype)]
-            )
-            sub_b0 = np.concatenate(
-                [sub_b0, np.full(pad_s, sub_b0[-1], sub_b0.dtype)]
-            )
-            sub_dlo = np.concatenate(
-                [sub_dlo, np.zeros(pad_s, sub_dlo.dtype)]
-            )
-            sub_dhi = np.concatenate(
-                [sub_dhi, np.zeros(pad_s, sub_dhi.dtype)]
-            )
-            host["sub_chunk"] = np.concatenate([
-                host["sub_chunk"],
-                np.full(pad_s, host["num_chunks"],
-                        host["sub_chunk"].dtype),
-            ])
-            if group_code:
-                G_eff = group_code >> 32
-                grp_b0 = np.concatenate(
-                    [grp_b0, np.zeros(pad_s * G_eff, grp_b0.dtype)]
-                )
-            S += pad_s
-            total_k += pad_k
-
-        as32 = lambda a: jnp.asarray(a.view(np.int32) if a.dtype == np.uint32 else a,
-                                     dtype=jnp.int32)
-        return cls(
-            vals=jnp.asarray(vals, dtype=val_dtype or jnp.float32),
-            lcols=jnp.asarray(lcols),
-            sub_b0=as32(sub_b0.astype(np.int32)),
-            sub_dlo=as32(sub_dlo),
-            sub_dhi=as32(sub_dhi),
-            sub_chunk=jnp.asarray(host["sub_chunk"], dtype=jnp.int32),
+        layout = cls(
+            vals=vals.astype(val_dtype or np.float32, copy=False),
+            lcols=lcols,
+            sub_b0=sub_b0.astype(np.int32),
+            sub_dlo=sub_dlo.view(np.int32),
+            sub_dhi=sub_dhi.view(np.int32),
+            sub_chunk=host["sub_chunk"].astype(np.int32),
             m=host["m"],
             n=host["n"],
             nnz=mat.nnz,
             num_chunks=host["num_chunks"],
             rank_nb=rank_nb,
             chunk_q=host["chunk_q"],
-            tile_k=tile_eff,
-            grp_b0=jnp.asarray(grp_b0),
+            grp_b0=grp_b0,
             group_code=group_code,
         )
+        return layout if on_host else _to_device(layout)

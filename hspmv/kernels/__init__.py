@@ -3,10 +3,6 @@ from hspmv.kernels.sell import spmv_ranked, spmv_sell  # noqa: F401
 
 
 def __getattr__(name):  # lazy: keep base import light
-    if name in ("spmm_ranked", "spmm_packed"):
-        from hspmv.kernels import spmm
-
-        return getattr(spmm, name)
     if name == "spmv_packed":
         from hspmv.kernels.packed import spmv_packed
 

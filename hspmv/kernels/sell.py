@@ -11,7 +11,10 @@ reduction over its lane.
                 (RankedSlabs); the int16/uint8 local columns save index
                 bytes, the absolute column is decoded on the fly
 
-Both run the shared slab body (kernels/slab.py) and are plain XLA.
+Both run the shared slab body (kernels/slab.py) and are plain XLA. Given
+X of shape (n, B) they compute the SpMM Y = A @ X of shape (m, B): the
+slab traffic is paid once for all B columns, and each slot gathers one
+row of X, B contiguous floats.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from hspmv.kernels.slab import ranked_columns, reduce_partials, subtile_partials
 
 @jax.jit
 def spmv_sell(layout: SellSlabs, x: jax.Array) -> jax.Array:
-    """y = A @ x with A in SELL-slab layout. x: (n,) -> y: (m,) float32."""
+    """y = A @ x with A in SELL-slab layout. x: (n[, B]) -> y: (m[, B])
+    float32."""
     with jax.named_scope("spmv_sell"):
         return reduce_partials(
             subtile_partials(layout.vals, layout.cols, x), layout
@@ -34,7 +38,7 @@ def spmv_sell(layout: SellSlabs, x: jax.Array) -> jax.Array:
 
 @jax.jit
 def spmv_ranked(layout: RankedSlabs, x: jax.Array) -> jax.Array:
-    """y = A @ x with A in rank-windowed SELL layout."""
+    """y = A @ x with A in rank-windowed SELL layout; x: (n[, B])."""
     with jax.named_scope("spmv_ranked"):
         cols = ranked_columns(layout)
         return reduce_partials(subtile_partials(layout.vals, cols, x), layout)

@@ -267,7 +267,7 @@ class ShardedIC0Preconditioner:
         from jax.sharding import NamedSharding, PartitionSpec as P
 
         rep = NamedSharding(mesh, P())
-        put = lambda a: jax.device_put(jnp.asarray(a), rep)
+        put = lambda a: jax.device_put(np.asarray(a), rep)
         return _dc.replace(
             self,
             lay_l=self.lay_l.device_put(mesh, axis),
@@ -291,7 +291,8 @@ class ShardedIC0Preconditioner:
         lay_l, pad_l = ShardedLowerSolve.build(sys_l, zeros, n_devices)
         lay_u, pad_u = ShardedLowerSolve.build(sys_u, zeros, n_devices)
 
-        i32 = lambda a: jnp.asarray(a, jnp.int32)
+        # Host arrays: device_put replicates them over the mesh.
+        i32 = lambda a: np.asarray(a, np.int32)
         return cls(
             lay_l=lay_l,
             lay_u=lay_u,
@@ -432,8 +433,9 @@ class BlockJacobiIC0Preconditioner:
                 block
             )
             bad_total += bad
-            lay_l = LowerSolveLayout.build(sys_l, np.zeros(L.m, np.float32))
-            lay_u = LowerSolveLayout.build(sys_u, np.zeros(L.m, np.float32))
+            zeros = np.zeros(L.m, np.float32)
+            lay_l = LowerSolveLayout.build(sys_l, zeros, on_host=True)
+            lay_u = LowerSolveLayout.build(sys_u, zeros, on_host=True)
             per.append(dict(
                 m_loc=m_loc,
                 slabs_l=lay_l.slabs, slabs_u=lay_u.slabs,
@@ -608,7 +610,9 @@ def _restack(per, stage, num_subtiles, num_chunks):
                 chunk_pack,
                 np.full(nc - chunk_pack.shape[0], c0.shape[0]),
             ])
-        scheds.append(LevelSchedule.build(slabs.sub_chunk, chunk_pack, T))
+        scheds.append(
+            LevelSchedule.build(slabs.sub_chunk, chunk_pack, T, on_host=True)
+        )
     return stack_schedules(scheds, num_subtiles, num_chunks)
 
 

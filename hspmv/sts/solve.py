@@ -30,7 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from hspmv.formats.csr import CSRMatrix
-from hspmv.formats.sell import LANES, SUBLANES, SellSlabs
+from hspmv.formats.sell import LANES, SUBLANES, SellSlabs, _to_device
 from hspmv.kernels.slab import subtile_partials
 from hspmv.sts.host import TriangularSystem
 
@@ -98,10 +98,13 @@ class LevelSchedule:
         return np.bincount(chunk_pack[real], minlength=int(chunk_pack.max(initial=0)) + 1)
 
     @classmethod
-    def build(cls, sub_chunk, chunk_pack: np.ndarray, T: int | None = None) -> "LevelSchedule":
+    def build(
+        cls, sub_chunk, chunk_pack: np.ndarray, T: int | None = None,
+        on_host: bool = False,
+    ) -> "LevelSchedule":
         """sub_chunk: (S,) sorted owning chunk per sub-tile (num_chunks
-        for the inert tail); chunk_pack: (num_chunks,) non-decreasing
-        pack id per chunk."""
+        for inert padding); chunk_pack: (num_chunks,) non-decreasing
+        pack id per chunk. on_host keeps the arrays in NumPy."""
         sc = np.asarray(sub_chunk, np.int64)
         chunk_pack = np.asarray(chunk_pack, np.int64)
         nc = chunk_pack.shape[0]
@@ -128,8 +131,9 @@ class LevelSchedule:
             c0.append(c)
             ncs.append(e - c)
             c = e
-        i32 = lambda a: jnp.asarray(np.asarray(a, np.int64), jnp.int32)
-        return cls(i32(s0), i32(c0), i32(ncs), i32(sub_step), int(T))
+        i32 = lambda a: np.asarray(a, np.int64).astype(np.int32)
+        sched = cls(i32(s0), i32(c0), i32(ncs), i32(sub_step), int(T))
+        return sched if on_host else _to_device(sched)
 
 
 def stack_schedules(scheds: list, num_subtiles: int, num_chunks: int) -> LevelSchedule:
@@ -223,9 +227,12 @@ class LowerSolveLayout:
         return cls(*children, *aux)
 
     @classmethod
-    def build(cls, sys: TriangularSystem, b: np.ndarray) -> "LowerSolveLayout":
+    def build(
+        cls, sys: TriangularSystem, b: np.ndarray, on_host: bool = False,
+    ) -> "LowerSolveLayout":
         """Build from a host TriangularSystem and right-hand side b
-        (both in the system's permuted row order)."""
+        (both in the system's permuted row order). on_host keeps every
+        array in NumPy (per-shard builds of the sharded layouts)."""
         L = sys.lower
         m = L.m
         lens = L.row_lengths
@@ -261,9 +268,10 @@ class LowerSolveLayout:
             vals,
             (m_pad, m_pad),
         )
-        slabs = SellSlabs.from_csr(strictL)
+        slabs = SellSlabs.from_csr(strictL, on_host=True)
         sched = LevelSchedule.build(
-            slabs.sub_chunk, chunk_packs(pad_start, slabs.num_chunks)
+            slabs.sub_chunk, chunk_packs(pad_start, slabs.num_chunks),
+            on_host=True,
         )
 
         num_chunks = slabs.num_chunks
@@ -271,14 +279,15 @@ class LowerSolveLayout:
         dpad = np.zeros((num_chunks + 1) * LANES, dtype=np.float32)
         bpad[pad_index] = np.asarray(b, dtype=np.float32) * inv_diag
         dpad[pad_index] = inv_diag
-        return cls(
+        layout = cls(
             slabs=slabs,
             sched=sched,
-            b_scale=jnp.asarray(bpad.reshape(num_chunks + 1, LANES)),
-            inv_diag=jnp.asarray(dpad.reshape(num_chunks + 1, LANES)),
-            pad_index=jnp.asarray(pad_index, dtype=jnp.int32),
+            b_scale=bpad.reshape(num_chunks + 1, LANES),
+            inv_diag=dpad.reshape(num_chunks + 1, LANES),
+            pad_index=pad_index.astype(np.int32),
             m=m,
         )
+        return layout if on_host else _to_device(layout)
 
 
 def pack_padding(sys: TriangularSystem) -> tuple[np.ndarray, np.ndarray]:

@@ -6,7 +6,7 @@ Role-equivalents of the reference's offline analysis helpers:
     layouts (SELL slabs / rank-windowed slabs).
   * analyze_warp_nnz.m (helpers/analyze_warp_nnz.m:23-66): replays the
     kernel's work decomposition counting nnz per work unit to expose
-    load imbalance — here per (8,128) sub-tile and per 512-sublane tile.
+    load imbalance — here per (8,128) sub-tile and per 128-row chunk.
 
 Usage: python -m hspmv.tools.analyze matrix.csr [--k 3 --sizes 8 8]
 """
@@ -85,9 +85,10 @@ def load_balance(mat) -> dict:
     vals = np.asarray(sell.vals)
     real = (vals != 0.0).reshape(sell.num_subtiles, SUBLANES * LANES)
     per_sub = real.sum(axis=1)
-    tile_subs = 512 // SUBLANES
-    ntiles = max(sell.num_subtiles // tile_subs, 1)
-    per_tile = per_sub[: ntiles * tile_subs].reshape(ntiles, tile_subs).sum(axis=1)
+    per_chunk = np.bincount(
+        np.asarray(sell.sub_chunk), weights=per_sub,
+        minlength=sell.num_chunks,
+    )[: sell.num_chunks]
     nb = np.asarray(sell.sub_nb)
 
     def spread(a):
@@ -101,7 +102,7 @@ def load_balance(mat) -> dict:
 
     return {
         "subtile_nnz": spread(per_sub),
-        "tile_nnz": spread(per_tile),
+        "chunk_nnz": spread(per_chunk),
         "subtile_gather_blocks": spread(nb),
         "num_subtiles": sell.num_subtiles,
         "padding_ratio": sell.padding_ratio,

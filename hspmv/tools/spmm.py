@@ -40,7 +40,7 @@ def main(argv=None):
                     "the bf16-rounded operator)")
     ap.add_argument("--devices", type=int, default=1,
                     help=">1: row-shard A over a device mesh and run the "
-                    "distributed SpMM (dist.spmm_sharded); 0 = all "
+                    "distributed SpMM (dist.spmv_sharded); 0 = all "
                     "available devices")
     ap.add_argument("--overlap", action="store_true",
                     help="with --devices: overlap the halo exchange "
@@ -55,7 +55,7 @@ def main(argv=None):
     import jax.numpy as jnp
 
     from hspmv.formats.sell import RankedSlabs
-    from hspmv.kernels.spmm import spmm_packed, spmm_ranked
+    from hspmv.kernels.sell import spmv_ranked
     from hspmv.tools.spmv import load_input
     from hspmv.tune.model import plan_layout
 
@@ -81,12 +81,13 @@ def main(argv=None):
         print(f"auto kernel: {kernel} ({plan.reason})")
     if kernel == "packed":
         from hspmv.formats.packed import PackedRanked
+        from hspmv.kernels.packed import spmv_packed
 
         try:
             layout = PackedRanked.from_csr(
                 mat, bin_blocks=max(plan.bin_blocks, 0), val_dtype=vdt
             )
-            return _run_single(mat, args, B, vdt, spmm_packed, layout)
+            return _run_single(mat, args, B, vdt, spmv_packed, layout)
         except ValueError as e:
             # Packed-delta overflow: the quantized ranked layout bins
             # per chunk.
@@ -100,7 +101,7 @@ def main(argv=None):
             f"ranked layout unavailable for this matrix ({e}); "
             "SpMM runs on the rank-windowed layouts only"
         )
-    return _run_single(mat, args, B, vdt, spmm_ranked, layout)
+    return _run_single(mat, args, B, vdt, spmv_ranked, layout)
 
 
 def _run_single(mat, args, B, vdt, fn, layout):
@@ -151,18 +152,16 @@ def _run_single(mat, args, B, vdt, fn, layout):
 
 def _distributed(mat, args, B, vdt):
     """Row-sharded SpMM over all/requested devices — the distributed
-    serving path (dist.spmm_sharded / dist.spmm_overlap), validated
+    serving path (dist.spmv_sharded / dist.spmv_overlap on (n, B) X), validated
     against the serial oracle like the single-chip mode."""
-    import functools
-
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from hspmv.bench.harness import bench_spmv, validate
     from hspmv.dist.sharding import (
-        OverlapRanked, ShardedRanked, make_row_mesh, spmm_overlap,
-        spmm_sharded,
+        OverlapRanked, ShardedRanked, make_row_mesh, spmv_overlap,
+        spmv_sharded,
     )
 
     avail = len(jax.devices())
@@ -174,13 +173,13 @@ def _distributed(mat, args, B, vdt):
     if args.overlap and D > 1:
         try:
             lay = OverlapRanked.build(mat, D, val_dtype=vdt)
-            fn = functools.partial(spmm_overlap, mesh=mesh)
+            fn = functools.partial(spmv_overlap, mesh=mesh)
             print(f"overlap split: edge nnz = {lay.edge.nnz}")
         except ValueError as e:
-            print(f"overlap unavailable ({e}); using spmm_sharded")
+            print(f"overlap unavailable ({e}); using spmv_sharded")
     if lay is None:
         lay = ShardedRanked.build(mat, D, val_dtype=vdt)
-        fn = functools.partial(spmm_sharded, mesh=mesh)
+        fn = functools.partial(spmv_sharded, mesh=mesh)
     lay = lay.device_put(mesh)
     print(f"devices={D} halo={lay.halo} rows/shard={lay.padded_m // D}")
 

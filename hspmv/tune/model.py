@@ -90,7 +90,6 @@ def reference_gpu_params(density: float, arch: str = "ampere") -> dict:
 @dataclasses.dataclass
 class LayoutPlan:
     kernel: str  # 'ranked' | 'sell' | 'packed' | 'dia'
-    tile_k: int
     needs_rcm: bool
     est_max_nb: float  # per-chunk column span, in 128-column blocks
     est_rank_nb: float  # per-slot column span (window-relative layouts)
@@ -367,7 +366,6 @@ def plan_layout(mat, assume_rcm: bool = False, exact: bool = True) -> LayoutPlan
 
     return LayoutPlan(
         kernel=kernel,
-        tile_k=2048,
         needs_rcm=needs_rcm,
         est_max_nb=est_nb,
         est_rank_nb=est_rank,

@@ -155,12 +155,12 @@ def test_bf16_cli_fallback_validates_vs_f32_oracle(capsys):
 
 def test_bf16_spmm_inherits_cast():
     """spmm over a bf16 RankedSlabs layout widens on load too."""
-    from hspmv.kernels.spmm import spmm_ranked
+    from hspmv.kernels.sell import spmv_ranked
 
     mat = laplacian_2d(32)
     lay = RankedSlabs.from_csr(mat, val_dtype=jnp.bfloat16)
     X = np.random.default_rng(3).standard_normal((mat.n, 4)).astype(np.float32)
-    Y = np.asarray(spmm_ranked(lay, jnp.asarray(X)))
+    Y = np.asarray(spmv_ranked(lay, jnp.asarray(X)))
     Y_oracle = np.stack(
         [_rounded(mat).matvec(X[:, j]) for j in range(4)], axis=1
     )

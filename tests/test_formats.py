@@ -217,9 +217,8 @@ def test_variable_stencil_structure():
 
 
 def test_ranked_tile_padup_correctness():
-    """Slab-row pad-up: a layout whose natural total_k is NOT a multiple
-    of the tile must pad up to tile_k=2048 (inert rows, window-safe pad
-    bases) and still reproduce the oracle."""
+    """The slab stack holds exactly the chunks' 8-slot sub-tiles: no
+    padding sub-tiles past the last chunk, and the oracle result."""
     import jax.numpy as jnp
 
     from hspmv.bench.matrices import random_banded
@@ -230,8 +229,9 @@ def test_ranked_tile_padup_correctness():
     mat = random_banded(40_000, 400, 9, seed=7)
     mat = mat.permuted(rcm(mat.indptr, mat.indices))
     lay = RankedSlabs.from_csr(mat, bin_blocks=2)
-    assert lay.tile_k == 2048  # padded up from the 512 quantum
-    assert int(lay.vals.shape[0]) % 2048 == 0
+    sub_chunk = np.asarray(lay.sub_chunk)
+    assert np.all(sub_chunk < lay.num_chunks)
+    assert int(lay.vals.shape[0]) == 8 * sub_chunk.size
     x = np.random.default_rng(3).standard_normal(mat.n).astype(np.float32)
     y = np.asarray(spmv_ranked(lay, jnp.asarray(x)))
     y_ref = mat.matvec(x)

@@ -114,11 +114,12 @@ def test_rectangular_kernels_agree():
     "name,mat", _cases(), ids=lambda v: v if isinstance(v, str) else ""
 )
 def test_spmm_kernels_agree(name, mat):
-    """spmm_ranked / spmm_packed vs column-wise oracle on every fuzz
+    """SpMM (spmv_ranked / spmv_packed on an (n, B) X) vs column-wise oracle on every fuzz
     case where the layouts build (B=5: an odd batch width)."""
     from hspmv.formats.packed import PackedRanked
     from hspmv.formats.sell import RankedSlabs
-    from hspmv.kernels.spmm import spmm_packed, spmm_ranked
+    from hspmv.kernels.packed import spmv_packed
+    from hspmv.kernels.sell import spmv_ranked
     from hspmv.reorder.rcm import rcm
 
     B = 5
@@ -135,7 +136,7 @@ def test_spmm_kernels_agree(name, mat):
         except ValueError:
             continue
         ran[f"spmm_ranked_w{bins}"] = np.asarray(
-            spmm_ranked(lay, Xj)
+            spmv_ranked(lay, Xj)
         )
     for bins in (0, 4):
         try:
@@ -143,7 +144,7 @@ def test_spmm_kernels_agree(name, mat):
         except ValueError:
             continue
         ran[f"spmm_packed_w{bins}"] = np.asarray(
-            spmm_packed(lay, Xj)
+            spmv_packed(lay, Xj)
         )
     assert ran, f"{name}: no SpMM layout built"
     for kname, Y in ran.items():

@@ -34,13 +34,13 @@ def test_spmm_matches_columnwise_spmv():
 
     from hspmv.bench.matrices import random_banded
     from hspmv.formats.sell import RankedSlabs
-    from hspmv.kernels.spmm import spmm_ranked
+    from hspmv.kernels.sell import spmv_ranked
 
     mat = random_banded(256, 24, 6, seed=1)
     lay = RankedSlabs.from_csr(mat)
     B = 3
     X = np.random.default_rng(0).standard_normal((mat.n, B)).astype(np.float32)
-    Y = np.asarray(spmm_ranked(lay, jnp.asarray(X)))
+    Y = np.asarray(spmv_ranked(lay, jnp.asarray(X)))
     Yref = np.stack([mat.matvec(X[:, b]) for b in range(B)], axis=1)
     assert (
         np.linalg.norm(Y - Yref) / np.linalg.norm(Yref) < 1e-6
@@ -54,13 +54,13 @@ def test_spmm_on_binned_layout():
 
     from hspmv.bench.matrices import random_general
     from hspmv.formats.sell import RankedSlabs
-    from hspmv.kernels.spmm import spmm_ranked
+    from hspmv.kernels.sell import spmv_ranked
 
     mat = random_general(500, 8, seed=4)
     lay = RankedSlabs.from_csr(mat, bin_blocks=4, allow_groups=False)
     rng = np.random.default_rng(0)
     X = rng.standard_normal((mat.n, 4)).astype(np.float32)
-    Y = np.asarray(spmm_ranked(lay, jnp.asarray(X)))
+    Y = np.asarray(spmv_ranked(lay, jnp.asarray(X)))
     Y_ref = np.stack([mat.matvec(X[:, b]) for b in range(4)], axis=1)
     rel = np.linalg.norm(Y - Y_ref) / np.linalg.norm(Y_ref)
     assert rel < 1e-6, rel

@@ -93,7 +93,7 @@ _WORKER = textwrap.dedent(
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from hspmv.dist.sharding import spmm_sharded
+    from hspmv.dist.sharding import spmv_sharded
 
     B = 3
     X = np.random.default_rng(2).standard_normal((mat.n, B)).astype(
@@ -102,7 +102,7 @@ _WORKER = textwrap.dedent(
     Xp = np.zeros((lp.padded_m, B), np.float32)
     Xp[: mat.n] = X
     Xj = jax.device_put(jnp.asarray(Xp), NamedSharding(mesh, P(axis)))
-    Y = spmm_sharded(lp, Xj, mesh, axis)
+    Y = spmv_sharded(lp, Xj, mesh, axis)
     Y_ref = np.stack([mat.matvec(X[:, c]) for c in range(B)], axis=1)
     for sh in Y.addressable_shards:
         sl = sh.index[0]

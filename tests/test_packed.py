@@ -33,11 +33,20 @@ def test_packed_matches_oracle():
 
 
 def test_packed_carry_crosses_tiles():
-    """Chunks spanning slab-tile boundaries reduce into one total
-    (multi-tile layout)."""
-    mat = laplacian_2d(150)  # ~22.5k rows -> several 512-sublane tiles
-    lay = PackedRanked.from_csr(mat, tile_k=512)
-    assert int(lay.vals.shape[0]) // lay.tile_k >= 2
+    """Chunks straddling 8-slot sub-tile boundaries reduce into one
+    total each (~22.5k rows, 176 chunks of 5 slot rows)."""
+    mat = laplacian_2d(150)
+    lay = PackedRanked.from_csr(mat)
+    from hspmv.kernels.slab import packed_slot_chunks
+
+    sc = np.asarray(packed_slot_chunks(lay))
+    sub = np.arange(sc.size) // 8
+    first = np.full(lay.num_chunks + 1, sc.size)
+    last = np.zeros(lay.num_chunks + 1, np.int64)
+    np.minimum.at(first, sc, sub)
+    np.maximum.at(last, sc, sub)
+    straddle = (last > first)[: lay.num_chunks]
+    assert straddle.sum() > 50  # about half the chunks cross one
     x = np.random.default_rng(1).standard_normal(mat.n).astype(np.float32)
     y = np.asarray(spmv_packed(lay, jnp.asarray(x)))
     assert _rel(y, mat.matvec(x)) < 1e-6
@@ -138,27 +147,21 @@ def test_packed_layout_cache_roundtrip(tmp_path):
 
 
 def test_packed_tile_padup_correctness():
-    """r4 grid-tile pad-up, packed variant: a layout whose natural
-    512-quantized total_k is NOT a multiple of the tile must pad up to
-    2048-sublane tiles (inert sub-tiles: vals=0, bmeta E=0) and still
-    reproduce the oracle through the kernel, including the cross-tile
-    carry landing before the pad region."""
+    """The slab stack ends at the last chunk's slots rounded up to one
+    8-slot sub-tile, with no further padding, and the partial last
+    sub-tile stays inert through the product."""
     mat = random_banded(80_000, 400, 9, seed=7)
     from hspmv.reorder import rcm
 
     mat = mat.permuted(rcm(mat.indptr, mat.indices))
     lay = PackedRanked.from_csr(mat)
-    assert lay.tile_k == 2048  # padded up from the 512 quantum
-    assert int(lay.vals.shape[0]) % 2048 == 0
-    # The pad is real: a 512-cap build (pick_tile_k path, no pad-up)
-    # ends at the natural 512-quantized total_k.
-    lay512 = PackedRanked.from_csr(mat, tile_k=512)
-    assert lay512.tile_k == 512
-    assert int(lay.vals.shape[0]) > int(lay512.vals.shape[0])
+    total_k = int(lay.vals.shape[0])
+    assert total_k % 8 == 0
+    # The last chunk ends in the last sub-tile.
+    last_end = 8 * (int(lay.out_row[-1]) // 2)
+    assert last_end == total_k - 8
     x = np.random.default_rng(3).standard_normal(mat.n).astype(np.float32)
     y = np.asarray(spmv_packed(lay, jnp.asarray(x)))
-    y512 = np.asarray(spmv_packed(lay512, jnp.asarray(x)))
-    np.testing.assert_array_equal(y, y512)
     assert _rel(y, mat.matvec(x)) < 1e-6
 
 
@@ -201,14 +204,14 @@ def test_packed_binned_cuts_quantum_fill():
 
 
 def test_spmm_packed_matches_columnwise_spmv():
-    """spmm_packed == B independent spmv_packed columns, across the
-    delta-window, grouped-window, binned, and multi-tile carry paths."""
-    from hspmv.kernels.spmm import spmm_packed
+    """spmv_packed on (n, B) == B independent spmv_packed columns, across
+    the delta-window, grouped-window, binned, and many-sub-tile paths."""
+    from hspmv.kernels.packed import spmv_packed
 
     cases = [
         (laplacian_2d(40), dict()),
         (random_banded(640, 40, 8, seed=4), dict()),
-        (laplacian_2d(150), dict(tile_k=512)),      # carry across tiles
+        (laplacian_2d(150), dict()),      # chunks across sub-tiles
         (random_banded(800, 120, 10, seed=2), dict(bin_blocks=2)),
     ]
     for B in (1, 3, 8):
@@ -217,7 +220,7 @@ def test_spmm_packed_matches_columnwise_spmv():
             X = np.random.default_rng(B).standard_normal(
                 (mat.n, B)
             ).astype(np.float32)
-            Y = np.asarray(spmm_packed(lay, jnp.asarray(X)))
+            Y = np.asarray(spmv_packed(lay, jnp.asarray(X)))
             ref = np.stack(
                 [mat.matvec(X[:, b]) for b in range(B)], axis=1
             )
@@ -226,7 +229,7 @@ def test_spmm_packed_matches_columnwise_spmv():
 
 
 def test_spmm_packed_grouped_path():
-    from hspmv.kernels.spmm import spmm_packed
+    from hspmv.kernels.packed import spmv_packed
 
     mat = laplacian_2d(48)
     lay_g = PackedRanked.from_csr(mat, allow_groups=True)
@@ -234,6 +237,6 @@ def test_spmm_packed_grouped_path():
     X = np.random.default_rng(0).standard_normal((mat.n, 4)).astype(
         np.float32
     )
-    Y = np.asarray(spmm_packed(lay_g, jnp.asarray(X)))
+    Y = np.asarray(spmv_packed(lay_g, jnp.asarray(X)))
     ref = np.stack([mat.matvec(X[:, b]) for b in range(4)], axis=1)
     assert _rel(Y, ref) < 1e-6

@@ -21,7 +21,6 @@ from hspmv.kernels.sell import spmv_ranked, spmv_sell, spmv_sell_reference
 from hspmv.kernels.slab import (
     packed_slot_chunks, ranked_columns, sublane_bases,
 )
-from hspmv.kernels.spmm import spmm_packed, spmm_ranked
 
 MATS = {
     "lap2d_24": lambda: laplacian_2d(24),
@@ -115,9 +114,9 @@ def test_slab_body_spmm(name, layout):
     B = 5
     X = np.random.default_rng(2).standard_normal((mat.n, B)).astype(np.float32)
     if layout == "ranked":
-        Y = np.asarray(spmm_ranked(RankedSlabs.from_csr(mat), jnp.asarray(X)))
+        Y = np.asarray(spmv_ranked(RankedSlabs.from_csr(mat), jnp.asarray(X)))
     else:
-        Y = np.asarray(spmm_packed(PackedRanked.from_csr(mat), jnp.asarray(X)))
+        Y = np.asarray(spmv_packed(PackedRanked.from_csr(mat), jnp.asarray(X)))
     Y_ref = np.stack([mat.matvec(X[:, b]) for b in range(B)], axis=1)
     assert Y.shape == (mat.m, B)
     assert _rel(Y, Y_ref) < 1e-6
